@@ -14,18 +14,26 @@ caught, and any failure exits non-zero.
   2. each kernel against its plain torch version on the card, at main-path
      shapes: B1 scan (F=101 depth 4, F=501 depth 6, both dec 4; and dec 1),
      B2 survivor demod (16 windows x 512 rows, wrap positions and gap
-     patterns), B3 BP (4096 rows of planted codewords and noise)
+     patterns), B3 BP (4096 rows of planted codewords and noise), B4 full
+     demod (F=101 depth 4 on 8 windows, F=501 depth 6 on 2, depth 8 with 5
+     candidates per pattern on 2; lags planted at the window's wrap points)
   3. main path: the CLI on demo/capture.raw on the card decodes the three
      planted messages, with lines identical (but for date=) to --device=cpu;
-     an in-process StreamDecoder pass over the demo launches every kernel
+     an in-process StreamDecoder pass over the demo launches the scan,
+     survivor and BP kernels. The same for the full-demod path
+     (--survivor-prefilter=0), whose pass launches the scan, demod and BP
+     kernels
   4. busy band: the four-ping pileup at width 200, depth 6, nbadsync 3,
      K=256 decodes all four, with per-message (num_avg, nbadsync) equal to the
-     CPU run, and the survivor-overflow warning fires
+     CPU run, and the survivor-overflow warning fires ("at least"); with the
+     prefilter off and K=4848 (every candidate) each ping decodes at
+     (num_avg, nbadsync) = (1, 0) within one step of its frequency, and at
+     K=256 the warning gives the exact count with the same per-message result
   5. deep scan: width 500, step 1, depth 6, nbadsync 3 on the -4 dB stimulus
      decodes
   6. timing with CUDA events: ms/window and x real time at the default and
-     deep configs at B=1 and B=64, the per-stage split, each kernel beside
-     its plain version
+     deep configs at B=1 and B=64 and of the full-demod path at the deep
+     config, the per-stage split, each kernel beside its plain version
 
 The line before the last is the JSON kernel table; the last line is the JSON
 device record.
@@ -119,7 +127,7 @@ def main() -> int:
     from msk144cudecoder_tpu_torch import constants as C
     from msk144cudecoder_tpu_torch import stimulus
     from msk144cudecoder_tpu_torch.config import DecoderConfig
-    from msk144cudecoder_tpu_torch.ops import kernels, ldpc, pipeline, scan, survivor
+    from msk144cudecoder_tpu_torch.ops import demod, kernels, ldpc, pipeline, scan, survivor
     from msk144cudecoder_tpu_torch.protocol import crc as crc_mod
     from msk144cudecoder_tpu_torch.protocol import ldpc_tables
     from msk144cudecoder_tpu_torch.runtime import StreamDecoder
@@ -250,35 +258,83 @@ def main() -> int:
                                               .abs().max().item()),
                             ms=ms, plain_ms=plain_ms))
 
-    # ---- phase 3: main path -----------------------------------------------
-    demo_path = ROOT / "demo" / "capture.raw"
-    out_gpu, err_gpu = run_cli(DEVICE, demo_path)
-    out_cpu, _ = run_cli("cpu", demo_path)
-    msgs = {ln.split("msg='")[1].split("'")[0] for ln in out_gpu.splitlines() if "msg='" in ln}
-    assert msgs == DEMO_MESSAGES, msgs
-    assert strip_date(out_gpu) == strip_date(out_cpu), (out_gpu, out_cpu)
-    log(f"[main] CLI on the card: {len(out_gpu.splitlines()) - 1} lines, identical to "
-        f"--device=cpu but for date=; messages {sorted(msgs)}")
-    for ln in err_gpu.splitlines():
-        if ln.startswith("Warning: at least"):
-            log("[main] " + ln)
+    # B4: the full-demod path's grid of every scan candidate, with lags
+    # planted at the window's wrap points in every window. Rule: softbits
+    # within 5e-3 relative (as B2); nbadsync equal on >= 99.99 % of the rows
+    # (noise rows' sync softbits can sit at +-0), and every unequal row has
+    # a plain sync softbit within 1e-3 of 0 before scaling
+    deep = DecoderConfig(search_width=500.0, search_step=1.0, scan_depth=6,
+                         nbadsync_threshold=3)
+    wraps = torch.tensor([0, 863, 864, 4320, 4321, 5183, 2591, 5000], dtype=torch.int32)
+    for cfg, nw in ((DecoderConfig(), 8), (deep, 2),
+                    (DecoderConfig(scan_depth=8, candidates_per_pattern=5), 2)):
+        cfg = cfg.replace(survivor_prefilter=0)
+        pipe, c = windows_on_card(cfg, nw)
+        pos = pipe.scan(c)[0].contiguous()
+        pos.view(nw, -1)[:, : len(wraps)] = wraps.to(dev)
+        dargs = (c, pipe.W, pos, pipe.demod_tables)
+        sb_k, nb_k = demod.demod_candidates_cuda(*dargs)
+        sb_p, nb_p = demod.demod_candidates_plain(*dargs)
+        torch.cuda.synchronize()
+        assert torch.isfinite(sb_k).all()
+        rel = ((sb_k - sb_p).abs() / (sb_p.abs() + 1e-3)).max().item()
+        share, n_mism, near = demod.nbadsync_agreement(*dargs, nb_k, nb_p)
+        assert rel < 5e-3, rel
+        assert share >= 0.9999 and near, (share, n_mism, near)
+        ms = cuda_time(lambda: demod.demod_candidates_cuda(*dargs), reps=20)
+        plain_ms = cuda_time(lambda: demod.demod_candidates_plain(*dargs), reps=3)
+        name = (f"demod F={cfg.num_freqs} depth={cfg.scan_depth} "
+                f"k={cfg.candidates_per_pattern} B={nw} ({nb_k.numel()} rows)")
+        log(f"[B4] {name}: max rel {rel:.3g}, nbadsync equal on {share:.6f} of rows "
+            f"({n_mism} unequal, all near 0: {near}), kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms  ({card})")
+        if cfg.num_freqs == 101 and cfg.scan_depth == 4:
+            kernel_rows.append(dict(name="demod", route="cuda",
+                                    source="msk144cudecoder_tpu_torch/csrc/demod.cu",
+                                    replaces="msk144cudecoder_tpu/ops/pallas_demod.py:169",
+                                    max_abs_err=float((sb_k - sb_p).abs().max().item()),
+                                    ms=ms, plain_ms=plain_ms))
+        del sb_p, nb_p, sb_k, nb_k
+    torch.cuda.empty_cache()
 
-    decoder = StreamDecoder(DecoderConfig(), dev)
-    kernels.reset_launch_counts()
-    found = set()
-    with contextlib.redirect_stderr(io.StringIO()):
-        for w in demo_windows:
-            decoder.submit(w)
-            for item in decoder.collect():
-                found.add(item.message)
-    torch.cuda.synchronize()
-    counts = kernels.launch_counts()
-    assert found == DEMO_MESSAGES, found
-    assert all(n > 0 for n in counts.values()), counts
-    log(f"[main] StreamDecoder pass over {len(demo_windows)} demo windows: "
-        f"launches {counts}")
+    # ---- phase 3: main path, then the full-demod path ----------------------
+    # each path is driven with the launch counts set to 0 just before it and
+    # read just after; a path's kernels must each launch, the other path's not
+    demo_path = ROOT / "demo" / "capture.raw"
+    paths = (("main", (), DecoderConfig(), ("scan", "survivor", "bp"), "Warning: at least"),
+             ("full", ("--survivor-prefilter=0",), DecoderConfig(survivor_prefilter=0),
+              ("scan", "demod", "bp"), "Warning: "))
+    path_counts = {}
+    for tag, flags, cfg, path_kernels, warn in paths:
+        out_gpu, err_gpu = run_cli(DEVICE, demo_path, *flags)
+        out_cpu, _ = run_cli("cpu", demo_path, *flags)
+        msgs = {ln.split("msg='")[1].split("'")[0] for ln in out_gpu.splitlines()
+                if "msg='" in ln}
+        assert msgs == DEMO_MESSAGES, (tag, msgs)
+        assert strip_date(out_gpu) == strip_date(out_cpu), (tag, out_gpu, out_cpu)
+        log(f"[{tag}] CLI {' '.join(flags)} on the card: {len(out_gpu.splitlines()) - 1} "
+            f"lines, identical to --device=cpu but for date=; messages {sorted(msgs)}")
+        for ln in err_gpu.splitlines():
+            if ln.startswith(warn):
+                log(f"[{tag}] " + ln)
+
+        decoder = StreamDecoder(cfg, dev)
+        kernels.reset_launch_counts()
+        found = set()
+        with contextlib.redirect_stderr(io.StringIO()):
+            for w in demo_windows:
+                decoder.submit(w)
+                for item in decoder.collect():
+                    found.add(item.message)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert found == DEMO_MESSAGES, (tag, found)
+        assert all((n > 0) == (k in path_kernels) for k, n in counts.items()), (tag, counts)
+        log(f"[{tag}] StreamDecoder pass over {len(demo_windows)} demo windows: "
+            f"launches {counts}")
+        path_counts.update({k: counts[k] for k in path_kernels if k not in path_counts})
     for row in kernel_rows:
-        row["launches"] = counts[row["name"]]
+        row["launches"] = path_counts[row["name"]]
 
     # ---- phase 4: busy band -----------------------------------------------
     bb_cfg = DecoderConfig(search_width=200.0, search_step=2.0, scan_depth=6,
@@ -297,9 +353,28 @@ def main() -> int:
     log(f"[busy] four pings decoded, (num_avg, nbadsync) equal to the CPU run: {best_gpu}; "
         f"warning: {err.getvalue().splitlines()[0]}")
 
+    # the full demod: every candidate demodulated, so the count is exact
+    full_best = {}
+    for k_surv in (bb_cfg.num_candidates, 256):
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            full_best[k_surv] = decode_best(
+                StreamDecoder(bb_cfg.replace(survivor_prefilter=0, max_survivors=k_surv), dev),
+                bb_windows)
+        assert set(full_best[k_surv]) == want, (k_surv, full_best[k_surv])
+        if k_surv == 256:
+            warning = err.getvalue()
+            assert "sync survivors exceed the LDPC batch" in warning, warning
+            assert "at least" not in warning, warning
+    for text, f0, *_ in stimulus.BUSY_BAND_PINGS:
+        na, nbad, f_dec = full_best[bb_cfg.num_candidates][text]
+        assert (na, nbad) == (1, 0) and abs(f_dec - f0) <= bb_cfg.search_step, (text, na, nbad, f_dec)
+    assert ({m: v[:2] for m, v in full_best[256].items()}
+            == {m: v[:2] for m, v in full_best[bb_cfg.num_candidates].items()}), full_best
+    log(f"[busy] prefilter 0, K={bb_cfg.num_candidates}: {full_best[bb_cfg.num_candidates]}; "
+        f"K=256: the same (num_avg, nbadsync), warning: {warning.splitlines()[0]}")
+
     # ---- phase 5: deep scan, weak signal -----------------------------------
-    deep = DecoderConfig(search_width=500.0, search_step=1.0, scan_depth=6,
-                         nbadsync_threshold=3)
     weak = stimulus.synthesize_audio_int16([("CQ K1ABC FN42", 1500.0)], 6, snr_db=-4.0,
                                            rng=np.random.default_rng(1000))
     with contextlib.redirect_stderr(io.StringIO()):
@@ -309,7 +384,8 @@ def main() -> int:
         f"{[(r.message, r.num_avg, r.nbadsync, r.f0) for r in weak_res]}")
 
     # ---- phase 6: timing --------------------------------------------------
-    for name, cfg in (("default", DecoderConfig()), ("deep", deep)):
+    for name, cfg in (("default", DecoderConfig()), ("deep", deep),
+                      ("deep full demod", deep.replace(survivor_prefilter=0))):
         pipe = pipeline.DecodePipeline(cfg).to(dev)
         for nb in (1, 64):
             raws = np.stack([demo_windows[i % len(demo_windows)] for i in range(nb)])

@@ -54,8 +54,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--survivor-prefilter", type=int, default=None,
                    help="demodulate only the top-P candidates by scan sync "
                         "correlation (default: auto = 2x max-survivors; 0 = "
-                        "off, which needs the full-demod kernel this port "
-                        "does not have yet)")
+                        "off: demodulate every candidate, with an exact "
+                        "survivor count)")
     p.add_argument("--window-batch", type=int, default=1,
                    help="windows decoded per device call")
     p.add_argument("--pipeline-depth", type=int, default=4,

@@ -41,7 +41,7 @@ class DecoderConfig:
     candidates_per_pattern: int = 8  # top-k candidate lags per (freq, pattern)
     survivor_prefilter: int | None = None  # demodulate only the top-P
     # candidates by scan xb. None = auto = 2 * max_survivors; 0 = demodulate
-    # every candidate (needs the full-demod kernel, not yet in this port)
+    # every candidate (the full demod, kernel B4; exact survivor counts)
     prefilter_per_cell: int = 2  # cap on prefiltered candidates per (freq,
     # pattern) cell; >= 2 keeps two same-frequency transmissions alive
     fast_math: bool = True  # ignored by the port (float32 throughout)

@@ -11,14 +11,10 @@
 //   gamma[m, k+1] = gamma[m, k] * conj(1 + chi_f)
 //   frame[l] = (sum_m c[(pos + 864m + l) mod N] * gamma[m, k]) * W[f, l],
 //              k = (pos + 864m + l) / N,  l < 864
-// then in shared memory: s = sum frame * conj(cb42) over samples [0, 42) and
-// [336, 378); cfac = conj(s)/|s| (mf_tail); the 144 matched-filter softbits
-// of the derotated frame: Q at column 2q from the imaginary part over rows
-// (858 + 12q + i) mod 864, I at column 2q+1 from the real part over rows
-// 12q + i; mean and variance over the 144 give scale = 2/(ssig * 0.36);
-// nbadsync counts the sign mismatches against the sync word at bits 0-7
-// and 56-63; out come the scaled data softbits [8:56) + [64:144).
-// Every phase is a table value (W, chi, cb42), none an in-kernel sincos.
+// then, on the frame in shared memory, the matched-filter tail msk::mf_tail
+// (common.cuh, shared with kernel B4): carrier phase, the 144 softbits,
+// their scale and nbadsync. Every phase is a table value (W, chi, cb42),
+// none an in-kernel sincos.
 //
 // What bounds it on the H100: per row about 6 * 864 complex loads of the
 // window (from L1/L2: a window is 41 KB and is shared by its 512 rows) and a
@@ -35,7 +31,6 @@ namespace {
 using namespace msk;
 
 constexpr int kThreads = 256;
-constexpr int kSoftbits = 144;
 
 __global__ void __launch_bounds__(kThreads)
 survivor_kernel(const float2* __restrict__ c, const float2* __restrict__ W,
@@ -47,9 +42,7 @@ survivor_kernel(const float2* __restrict__ c, const float2* __restrict__ W,
   __shared__ float2 frame[kFrameLen];
   __shared__ float2 gam[kFrames][3];
   __shared__ int active[kFrames];
-  __shared__ float sb[kSoftbits];
-  __shared__ float2 sync_part[2];
-  __shared__ float scratch[kThreads / 32];
+  __shared__ TailSmem<kThreads> tail;
 
   const int row = blockIdx.x;
   const int b = row / S;
@@ -97,53 +90,8 @@ survivor_kernel(const float2* __restrict__ c, const float2* __restrict__ W,
   }
   __syncthreads();
 
-  // carrier phase: warp 0 sums the first sync region, warp 1 the second
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp < 2) {
-    const int base = warp == 0 ? 0 : kSecondSync;
-    float2 v = make_float2(0.f, 0.f);
-    for (int i = lane; i < kSyncTaps; i += 32) v = cadd(v, cmul(frame[base + i], sync_conj[i]));
-    v.x = warp_sum(v.x);
-    v.y = warp_sum(v.y);
-    if (lane == 0) sync_part[warp] = v;
-  }
-  __syncthreads();
-  const float2 s = cadd(sync_part[0], sync_part[1]);
-  const float inv = 1.f / fmaxf(sqrtf(s.x * s.x + s.y * s.y), 1e-30f);
-  const float cre = s.x * inv;  // cfac = conj(s) / |s|
-  const float cim = -s.y * inv;
-
-  float v = 0.f;
-  if (threadIdx.x < kSoftbits) {
-    const int q = threadIdx.x >> 1;
-    for (int i = 0; i < 12; ++i) {
-      if ((threadIdx.x & 1) == 0) {  // Q rail: imag of the derotated frame
-        const float2 z = frame[(858 + 12 * q + i) % kFrameLen];
-        v += (z.x * cim + z.y * cre) * pp12[i];
-      } else {  // I rail: real part
-        const float2 z = frame[12 * q + i];
-        v += (z.x * cre - z.y * cim) * pp12[i];
-      }
-    }
-    sb[threadIdx.x] = v;
-  }
-  const float sav = block_sum<kThreads>(v, scratch) / static_cast<float>(kSoftbits);
-  const float s2av = block_sum<kThreads>(v * v, scratch) / static_cast<float>(kSoftbits);
-  const float ssig = sqrtf(fmaxf(s2av - sav * sav, 1e-30f));
-  const float scale = 2.f / (ssig * 0.36f);  // 2 / (ssig * sigma^2), sigma = 0.6
-
-  const int t = threadIdx.x;
-  bool bad = false;
-  if (t < 8 || (t >= 56 && t < 64)) {
-    const int hard = sb[t] < 0.f ? -1 : 1;
-    bad = hard != sync_pm[t & 7];
-  }
-  const int nbad = __syncthreads_count(bad);
-  const size_t out = static_cast<size_t>(row) * 128;
-  if (t >= 8 && t < 56) sb_out[out + t - 8] = scale * sb[t];
-  if (t >= 64 && t < kSoftbits) sb_out[out + t - 16] = scale * sb[t];
-  if (t == 0) nbad_out[row] = nbad;
+  mf_tail<kThreads>(frame, 0, kFrameLen, sync_conj, pp12, sync_pm, tail,
+                    sb_out + static_cast<size_t>(row) * 128, nbad_out + row);
 }
 
 }  // namespace

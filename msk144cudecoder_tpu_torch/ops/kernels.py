@@ -1,7 +1,8 @@
 """Build, binding and launch accounting for the hand-written CUDA kernels.
 
-The sources under ../csrc/ compile with nvcc into ONE shared library with a
-plain C interface, loaded with ctypes (no PyTorch headers, so a build takes
+The sources under ../csrc/ compile with nvcc, one process per source, all
+started together, and link into ONE shared library with a plain C
+interface, loaded with ctypes (no PyTorch headers, so a build takes
 seconds). The library is keyed on a hash of the sources and the flags and
 lives in ../_build/ (git-ignored); the first kernel call builds it. Nothing
 here runs at import time: the CPU test suite imports every module on a
@@ -10,8 +11,9 @@ machine without nvcc or a GPU.
 Each C entry point launches one kernel on the stream it is given and
 returns cudaGetLastError(); raise_on_error turns a nonzero code into an
 exception. Launch counts live on the wrappers (scan.scan_cuda.launches,
-survivor.demod_survivors_cuda.launches, ldpc.bp_decode_cuda.launches);
-launch_counts / reset_launch_counts read and clear all three.
+survivor.demod_survivors_cuda.launches, demod.demod_candidates_cuda.launches,
+ldpc.bp_decode_cuda.launches); launch_counts / reset_launch_counts read and
+clear all four.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,13 +42,16 @@ SIGNATURES = {
     # c, W, chi, pos, f_idx, p_idx, sync_conj, pp12, masks, sync_pm, sb_out,
     # nbad_out, n_win, S, F, stream
     "msk_survivor": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # c, W, pos, sync_conj, pp12, masks, sync_pm, sb_out, nbad_out, n_win, F,
+    # depth, num_cand, stream
+    "msk_demod": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # llr, valid, nm, mn_edge, crc, cw_out, found_out, iters_out, nerr_out,
     # rows, max_iters, stream
     "msk_bp": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
 }
 
 _lib = None  # the loaded library, once built
-last_build_seconds = None  # wall time of this process's nvcc run, if any
+last_build_seconds = None  # wall time of this process's build, if any
 
 
 def sources() -> list[pathlib.Path]:
@@ -78,23 +83,38 @@ def find_nvcc() -> str:
 
 
 def build() -> pathlib.Path:
-    """Compile csrc/*.cu into the hashed library unless it already exists.
-    ptxas's per-kernel register/shared-memory report goes to <lib>.log."""
+    """Compile csrc/*.cu into the hashed library unless it already exists:
+    one nvcc per source in parallel, then one link. ptxas's per-kernel
+    register/shared-memory report goes to <lib>.log."""
     global last_build_seconds
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-Xptxas=-v", "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]]
+    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    objs = [out.with_suffix(f".{src.stem}.{os.getpid()}.o") for src in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-Xptxas=-v", "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(srcs, objs)]
+    outs = [proc.communicate() for proc in procs]  # waits for every nvcc
+    runs = [(src.name, proc.returncode, so, se) for src, proc, (so, se) in zip(srcs, procs, outs)]
+    failed = [r for r in runs if r[1] != 0]
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        runs.append(("link", link.returncode, link.stdout, link.stderr))
+        failed = [r for r in runs[-1:] if r[1] != 0]
     last_build_seconds = time.perf_counter() - t0
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    out.with_suffix(".log").write_text("".join(so + se for _, _, so, se in runs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        name, rc, _, err = failed[0]
+        raise RuntimeError(f"nvcc failed on {name} ({rc}):\n{err[-4000:]}")
     os.replace(tmp, out)
     return out
 
@@ -156,16 +176,18 @@ def check_tensors(op: str, **specs) -> None:
 
 
 def launch_counts() -> dict[str, int]:
-    from . import ldpc, scan, survivor
+    from . import demod, ldpc, scan, survivor
 
     return {"scan": scan.scan_cuda.launches,
             "survivor": survivor.demod_survivors_cuda.launches,
+            "demod": demod.demod_candidates_cuda.launches,
             "bp": ldpc.bp_decode_cuda.launches}
 
 
 def reset_launch_counts() -> None:
-    from . import ldpc, scan, survivor
+    from . import demod, ldpc, scan, survivor
 
     scan.scan_cuda.launches = 0
     survivor.demod_survivors_cuda.launches = 0
+    demod.demod_candidates_cuda.launches = 0
     ldpc.bp_decode_cuda.launches = 0

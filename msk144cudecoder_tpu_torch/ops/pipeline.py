@@ -2,17 +2,21 @@
 prefilter -> survivor demod -> survivor selection -> LDPC + CRC -> result
 compaction.
 
-Port of the flagship branch of msk144cudecoder_tpu/ops/pipeline.py
-(decode_windows with the scan, survivor-demod and BP kernels, the xb
-prefilter on). The window axis B and the flat B*K BP batch are explicit
-batch dimensions. `DecodePipeline` holds every constant table as a buffer,
-so `.to(device)` moves all of it; on a CUDA device the three kernels
-(csrc/) run, on the CPU their plain torch versions, with the same glue.
+Port of msk144cudecoder_tpu/ops/pipeline.py decode_windows, both branches:
+the flagship one (the xb prefilter on: scan, survivor demod of the
+prefiltered rows, BP) and, with the prefilter off (survivor_prefilter=0),
+the full demod of every scan candidate (prepare_window's non-prefilter
+branch: scan, full demod, selection over the whole grid, BP). The window
+axis B and the flat B*K BP batch are explicit batch dimensions.
+`DecodePipeline` holds every constant table as a buffer, so `.to(device)`
+moves all of it; on a CUDA device the kernels (csrc/) run, on the CPU their
+plain torch versions, with the same glue.
 
 Every ordering the decode depends on keeps the JAX package's tie order:
 stable descending sorts for the prefilter and the survivor keys (never
-torch.topk), the two-key (nbadsync asc, xb desc, index asc) survivor sort,
-and the found-first stable compaction of the results. Message unpacking and
+torch.topk, lower index first on ties as lax.top_k orders them), the
+two-key (nbadsync asc, xb desc, index asc) survivor sort, and the
+found-first stable compaction of the results. Message unpacking and
 dedup happen on the host (runtime/).
 """
 
@@ -26,7 +30,7 @@ from torch import nn
 
 from .. import constants as C
 from ..config import DecoderConfig
-from . import analytic, ldpc, scan, survivor, tables
+from . import analytic, demod, ldpc, scan, survivor, tables
 from .ldpc import BPResult
 
 _N = C.WINDOW_LEN
@@ -46,7 +50,8 @@ class WindowDecodeResult(NamedTuple):
     pos: torch.Tensor  # (B, R) int32
     ldpc_iterations: torch.Tensor  # (B, R) int32
     hard_errors: torch.Tensor  # (B, R) int32
-    num_survivors: torch.Tensor  # (B,) int32: prefiltered rows under the threshold
+    num_survivors: torch.Tensor  # (B,) int32: rows under the threshold, of the
+    # prefiltered rows (a lower bound) or of the whole grid (prefilter off: exact)
     shard_survivors: torch.Tensor  # (B,) int32: the same on one device
     block_power: torch.Tensor  # (B, 8) float32 sub-block powers for SNR
 
@@ -150,22 +155,35 @@ TOPK_MAX_THRESHOLD = 4  # the JAX package's single-key path holds for threshold 
 
 
 def select_survivors_topk(nbad_f: torch.Tensor, xb_f: torch.Tensor, k: int,
-                          threshold: int) -> torch.Tensor:
+                          threshold: int, mask: torch.Tensor | None = None
+                          ) -> torch.Tensor:
     """The JAX package's single-key survivor order: key = clamp(xb, 2^-4,
     2^20) * 2^(-24 * min(nbad, threshold + 1)), an exact power-of-two shift,
-    ranked descending with lower index first on ties."""
+    ranked descending with lower index first on ties. Rows outside `mask`
+    (broadcast over the last axis) get key 0 and rank last: real keys are
+    > 0."""
     cls = torch.clamp_max(nbad_f, threshold + 1).to(torch.int32)
     key = torch.ldexp(torch.clamp(xb_f, _XB_LO, _XB_HI), -24 * cls)
+    if mask is not None:
+        key = torch.where(mask, key, torch.zeros((), dtype=key.dtype, device=key.device))
     return torch.sort(key, dim=-1, descending=True, stable=True)[1][..., :k]
 
 
 def select_survivors_quota(nbad_f: torch.Tensor, xb_f: torch.Tensor, k: int,
-                           quotas: list[tuple[int, slice]]) -> torch.Tensor:
-    """Survivor selection with a per-pattern slot quota (summing to k): each
-    (quota, slice) segment of the pattern-major axis keeps its best `quota`
-    rows by select_survivors."""
-    parts = [select_survivors(nbad_f[..., seg], xb_f[..., seg], q) + seg.start
-             for q, seg in quotas]
+                           threshold: int, quotas: list[tuple[int, object]]
+                           ) -> torch.Tensor:
+    """Survivor selection with a per-pattern slot quota (summing to k). A
+    (quota, slice) segment of a pattern-major axis (the prefiltered rows)
+    keeps its best `quota` rows by select_survivors; a (quota, mask) segment
+    over the whole axis (the full grid) keeps its best `quota` rows of the
+    mask by select_survivors_topk, so that rows under the threshold share
+    one bucket ordered by xb alone."""
+    parts = []
+    for q, seg in quotas:
+        if isinstance(seg, slice):
+            parts.append(select_survivors(nbad_f[..., seg], xb_f[..., seg], q) + seg.start)
+        else:
+            parts.append(select_survivors_topk(nbad_f, xb_f, q, threshold, mask=seg))
     return torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
 
 
@@ -181,24 +199,36 @@ class PreparedWindows(NamedTuple):
     num_survivors: torch.Tensor  # (B,) int32
 
 
-def select_stage(sb_f, nbad_f, xb_f, pos_f, cand_all,
-                 cfg: DecoderConfig) -> PreparedWindows:
-    """Survivor selection over the prefiltered rows (B, pre), pattern-major
-    (cfg.scan_depth quota segments), then the row take for BP."""
+def survivor_index(nbad_f: torch.Tensor, xb_f: torch.Tensor, cfg: DecoderConfig,
+                   p_idx: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, k) indices of the survivors chosen for BP among the rows (B, nc),
+    k = min(max_survivors, nc), as prepare_window chooses them. With
+    threshold <= 4 and k >= P > 1, a per-pattern quota: p_idx None means
+    pattern-major rows (the prefilter's quota runs, slice segments), else
+    p_idx (nc,) gives each row's pattern (the full grid, mask segments)."""
     P = cfg.scan_depth
     nc_sel = nbad_f.shape[-1]
     k = min(cfg.max_survivors, nc_sel)
     thr = cfg.nbadsync_threshold
-    if thr <= TOPK_MAX_THRESHOLD:
-        if k >= P > 1:
-            offs = np.cumsum([0] + split_quota(nc_sel, P))
-            segs = [slice(int(offs[p]), int(offs[p + 1])) for p in range(P)]
-            top_idx = select_survivors_quota(nbad_f, xb_f, k,
-                                             list(zip(split_quota(k, P), segs)))
-        else:
-            top_idx = select_survivors_topk(nbad_f, xb_f, k, thr)
+    if thr > TOPK_MAX_THRESHOLD:
+        return select_survivors(nbad_f, xb_f, k)
+    if not k >= P > 1:
+        return select_survivors_topk(nbad_f, xb_f, k, thr)
+    if p_idx is None:
+        offs = np.cumsum([0] + split_quota(nc_sel, P))
+        segs = [slice(int(offs[p]), int(offs[p + 1])) for p in range(P)]
     else:
-        top_idx = select_survivors(nbad_f, xb_f, k)
+        segs = [p_idx == p for p in range(P)]
+    return select_survivors_quota(nbad_f, xb_f, k, thr, list(zip(split_quota(k, P), segs)))
+
+
+def select_stage(sb_f, nbad_f, xb_f, pos_f, cand_all, cfg: DecoderConfig,
+                 p_idx: torch.Tensor | None = None) -> PreparedWindows:
+    """Survivor selection over the demodulated rows (B, nc_sel), then the
+    row take for BP: the prefiltered rows, pattern-major, or (p_idx given)
+    the whole candidate grid. num_survivors counts every row."""
+    thr = cfg.nbadsync_threshold
+    top_idx = survivor_index(nbad_f, xb_f, cfg, p_idx)
     llr = torch.gather(sb_f, 1, top_idx[..., None].expand(-1, -1, sb_f.shape[-1]))
     nbad_k = torch.gather(nbad_f, 1, top_idx)
     return PreparedWindows(
@@ -244,7 +274,8 @@ class DecodePipeline(nn.Module):
     carriers and FFT mask, the demod constants (sync vector, matched-filter
     taps, pattern masks, sync word) and the LDPC edge tables NM/MN plus the
     CRC matrix. forward(raw) runs all stages; the stage methods are public
-    so that a caller can time them one by one."""
+    so that a caller can time them one by one. `pre` is the resolved
+    prefilter size: 0 runs the full demod of every candidate (kernel B4)."""
 
     def __init__(self, cfg: DecoderConfig, chan_valid=None):
         super().__init__()
@@ -253,13 +284,9 @@ class DecodePipeline(nn.Module):
                 "channel masks (the frequency sharding pad) are not ported yet "
                 "(ROADMAP: multi-GPU via torch.distributed)")
         F = cfg.num_freqs
+        self.grid = (F, cfg.scan_depth, cfg.candidates_per_pattern)  # (F, P, k)
         self.nc = F * cfg.scan_depth * cfg.candidates_per_pattern
         self.pre = resolve_prefilter(cfg, self.nc)
-        if self.pre == 0:
-            raise NotImplementedError(
-                "survivor_prefilter=0 (or a prefilter as large as the candidate "
-                f"grid, {self.nc}) needs the full-demod kernel, not ported yet "
-                "(ROADMAP: B4, full demod of every scan candidate)")
         self.cfg = cfg
         self.per_cell = prefilter_per_cell(cfg, F * cfg.scan_depth, self.pre)
 
@@ -305,16 +332,35 @@ class DecodePipeline(nn.Module):
                          cfg.candidates_per_pattern, cfg.scan_decimation)
 
     def prefilter(self, pos: torch.Tensor, xb: torch.Tensor):
-        return prefilter_select(xb, pos, self.pre, self.per_cell)
+        """The rows to demodulate, (xb, pos, f_idx, p_idx, flat_idx) each
+        (B, rows): the prefilter's top `pre` rows, pattern-major, or with
+        the prefilter off every candidate of the grid in (F, P, k) order."""
+        if self.pre:
+            return prefilter_select(xb, pos, self.pre, self.per_cell)
+        nb = pos.shape[0]
+        flat = torch.arange(self.nc, dtype=torch.int32, device=pos.device)
+        per_f = pos.shape[2] * pos.shape[3]
+        f_idx = torch.div(flat, per_f, rounding_mode="floor")
+        p_idx = torch.div(flat % per_f, pos.shape[3], rounding_mode="floor")
+        return (xb.reshape(nb, self.nc), pos.reshape(nb, self.nc),
+                *(a.expand(nb, -1) for a in (f_idx, p_idx, flat)))
 
     def demod(self, c: torch.Tensor, front):
+        """(softbits (B, rows, 128), nbadsync (B, rows)) of the front's rows:
+        kernel B2 on the prefiltered rows, kernel B4 on the full grid."""
         _, pos_f, f_idx, p_idx, _ = front
-        return survivor.demod_survivors(c, self.W, self.chi, pos_f, f_idx, p_idx,
-                                        self.demod_tables)
+        if self.pre:
+            return survivor.demod_survivors(c, self.W, self.chi, pos_f, f_idx, p_idx,
+                                            self.demod_tables)
+        nb = pos_f.shape[0]
+        sb, nbad = demod.demod_candidates(c, self.W, pos_f.reshape((nb,) + self.grid),
+                                          self.demod_tables)
+        return sb.reshape(nb, self.nc, C.NUM_DATA_BITS), nbad.reshape(nb, self.nc)
 
     def select(self, sb_f, nbad_f, front) -> PreparedWindows:
-        xb_f, pos_f, _, _, flat_idx = front
-        return select_stage(sb_f, nbad_f, xb_f, pos_f, flat_idx, self.cfg)
+        xb_f, pos_f, _, p_idx, flat_idx = front
+        return select_stage(sb_f, nbad_f, xb_f, pos_f, flat_idx, self.cfg,
+                            p_idx=None if self.pre else p_idx[0])
 
     def bp(self, prep: PreparedWindows) -> BPResult:
         b, k = prep.valid.shape

@@ -42,6 +42,10 @@ class StreamDecoder:
         # LDPC rows decoded per window: the bound the overflow warning cites
         # (K on one device; a frequency-sharded run would decode K per shard)
         self.survivor_capacity = cfg.max_survivors
+        # with the xb prefilter on, survivor counts are lower bounds: only the
+        # prefiltered candidates are demodulated, and nbadsync exists only
+        # after the demod. With it off (the full demod) they are exact.
+        self._count_is_lower_bound = self.pipeline.pre > 0
         self.snr_tracker = SNRTracker()
         self.result_filter = ResultFilter()
         self.hashes = msg77.CallsignHashTable()
@@ -134,9 +138,8 @@ class StreamDecoder:
 
         Two triggers (either suffices): the global survivor count exceeding
         the total LDPC capacity, and any single frequency shard exceeding its
-        local K. The xb prefilter is always on in this port, so both counts
-        are lower bounds (nbadsync exists only for the demodulated,
-        prefiltered candidates) and the warning says "at least"."""
+        local K. With the xb prefilter on both counts are lower bounds and
+        the warning says "at least"; with it off they are exact."""
         self._ovf_window += 1
         shard_over = shard_surv > self.cfg.max_survivors
         if n_surv > 0 or shard_over:
@@ -151,15 +154,16 @@ class StreamDecoder:
             agg = (f" ({self._ovf_count} of the last {self._ovf_window} "
                    f"windows overflowed; max {mx})"
                    if self._ovf_window > 1 else "")
+            lb = "at least " if self._count_is_lower_bound else ""
             # cite the bound that was exceeded: the global capacity first,
             # then the per-shard one
             g = n_surv if n_surv > 0 else self._ovf_max_global
             if g > 0:
-                head = (f"at least {g} sync survivors exceed the LDPC batch "
+                head = (f"{lb}{g} sync survivors exceed the LDPC batch "
                         f"(max_survivors={self.survivor_capacity})")
             else:
                 s = shard_surv if shard_over else self._ovf_max_shard
-                head = (f"at least {s} sync survivors in one frequency "
+                head = (f"{lb}{s} sync survivors in one frequency "
                         f"shard exceed its local batch "
                         f"(max_survivors={self.cfg.max_survivors} per shard)")
             print(

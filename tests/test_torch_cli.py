@@ -1,7 +1,9 @@
 """The PyTorch port's host runtime and CLI on the CPU: output lines
-identical to the JAX CLI's on the demo capture, StreamDecoder's batching and
-survivor-overflow warning, the import guard (the port never imports jax or
-the JAX package), and no hidden fallback from CUDA to the CPU."""
+identical to the JAX CLI's on the demo capture (the prefilter on, and off:
+the full demod), StreamDecoder's batching and survivor-overflow warning
+("at least" only with the prefilter on), the busy band on the full demod,
+the import guard (the port never imports jax or the JAX package), and no
+hidden fallback from CUDA to the CPU."""
 
 import os
 import pathlib
@@ -55,6 +57,19 @@ def test_cli_lines_match_jax_cli(port_run):
             if "msg='" in ln}
     assert msgs == {"CQ K1ABC FN42", "K1ABC W9XYZ EN37", "W9XYZ K1ABC RR73"}
     assert "Precision: fp32" in port_run.stderr and "Device: cpu" in port_run.stderr
+
+
+def test_full_demod_cli_lines_match_jax_cli_default():
+    """--survivor-prefilter=0 against the JAX CLI's default on the CPU, which
+    resolves the prefilter to off there (the jnp full demod)."""
+    ours = run("msk144cudecoder_tpu_torch", "--device=cpu", "--survivor-prefilter=0", *SMALL)
+    assert ours.returncode == 0, ours.stderr
+    ref = run("msk144cudecoder_tpu", "--platform=cpu", *SMALL)
+    assert ref.returncode == 0, ref.stderr
+    assert lines(ours.stdout) == lines(ref.stdout)
+    msgs = {ln.split("msg='")[1].split("'")[0] for ln in ours.stdout.splitlines()
+            if "msg='" in ln}
+    assert msgs == {"CQ K1ABC FN42", "K1ABC W9XYZ EN37", "W9XYZ K1ABC RR73"}
 
 
 def test_window_batch_mode_same_lines(port_run):
@@ -132,6 +147,41 @@ def test_overflow_warning_says_at_least(busy_windows, capsys):
     assert n > 64
     assert f"Warning: at least {n} sync survivors exceed the LDPC batch (max_survivors=64)" in err
     assert err.count("Warning:") == 1  # the second window folds into the aggregate
+
+
+def test_overflow_warning_exact_without_prefilter(busy_windows, capsys):
+    """With the prefilter off every candidate is demodulated, so the count
+    is exact and the warning prints it without "at least"."""
+    cfg = DecoderConfig(search_width=64.0, scan_depth=6, nbadsync_threshold=3,
+                        max_survivors=64, center_frequency=1450.0, survivor_prefilter=0)
+    dec = StreamDecoder(cfg)
+    res = dec.decode_to_host(busy_windows[:2])
+    dec.postprocess_batch(res, 2)
+    err = capsys.readouterr().err
+    n = int(res.num_survivors[0])
+    assert n > 64
+    assert f"Warning: {n} sync survivors exceed the LDPC batch (max_survivors=64)" in err
+    assert "at least" not in err
+
+
+def test_busy_band_full_demod(busy_windows):
+    """The busy band at prefilter 0 and K = every candidate (4848), the
+    tests/test_busyband.py full run: each of the four pings decodes with
+    (num_avg, nbadsync) = (1, 0) within one step of its planted frequency."""
+    cfg = DecoderConfig(search_width=200.0, search_step=2.0, scan_depth=6,
+                        nbadsync_threshold=3, survivor_prefilter=0, max_survivors=4848)
+    assert cfg.num_candidates == 4848
+    dec = StreamDecoder(cfg)
+    best = {}
+    for lo in range(0, len(busy_windows), 2):  # two windows per call bound the memory
+        for items in dec.decode_many(busy_windows[lo:lo + 2]):
+            for r in items:
+                if r.message not in best or (r.num_avg, r.nbadsync) < best[r.message][:2]:
+                    best[r.message] = (r.num_avg, r.nbadsync, r.f0)
+    assert set(best) == {p[0] for p in stimulus.BUSY_BAND_PINGS}
+    for text, f0, *_ in stimulus.BUSY_BAND_PINGS:
+        assert best[text][:2] == (1, 0), (text, best[text])
+        assert abs(best[text][2] - f0) <= cfg.search_step, (text, best[text])
 
 
 def test_unpack_cache_is_bounded(monkeypatch):

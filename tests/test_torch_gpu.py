@@ -13,7 +13,7 @@ import torch
 
 from msk144cudecoder_tpu_torch import stimulus
 from msk144cudecoder_tpu_torch.config import DecoderConfig
-from msk144cudecoder_tpu_torch.ops import kernels, ldpc, pipeline, scan, survivor
+from msk144cudecoder_tpu_torch.ops import demod, kernels, ldpc, pipeline, scan, survivor
 from msk144cudecoder_tpu_torch.protocol import crc, ldpc_tables
 
 pytestmark = pytest.mark.gpu
@@ -65,6 +65,26 @@ def test_survivor_kernel_matches_plain(setup):
     sb_p, nb_p = survivor.demod_survivors_plain(*args)
     assert torch.equal(nb_k, nb_p)
     assert ((sb_k - sb_p).abs() / (sb_p.abs() + 1e-3)).max().item() < 5e-3
+
+
+@pytest.mark.parametrize("depth,k", [(4, 8), (8, 5)])
+def test_demod_kernel_matches_plain(setup, depth, k):
+    """Kernel B4 on the scan's grid at the default width, with lags planted
+    at the window's wrap points: softbits within 5e-3 relative, nbadsync
+    equal on >= 99.99 % of rows, and every unequal row has a sync softbit
+    within 1e-3 of 0."""
+    cfg, _, c = setup
+    pipe = pipeline.DecodePipeline(cfg.replace(scan_depth=depth, candidates_per_pattern=k,
+                                               survivor_prefilter=0)).to(c.device)
+    pos = pipe.scan(c)[0].contiguous()
+    pos.view(pos.shape[0], -1)[:, :6] = torch.tensor([0, 863, 864, 4320, 5183, 2591],
+                                                     dtype=torch.int32, device=c.device)
+    args = (c, pipe.W, pos, pipe.demod_tables)
+    sb_k, nb_k = demod.demod_candidates_cuda(*args)
+    sb_p, nb_p = demod.demod_candidates_plain(*args)
+    assert ((sb_k - sb_p).abs() / (sb_p.abs() + 1e-3)).max().item() < 5e-3
+    share, _, near = demod.nbadsync_agreement(*args[:3], pipe.demod_tables, nb_k, nb_p)
+    assert share >= 0.9999 and near
 
 
 def test_bp_kernel_matches_plain(setup):

@@ -1,13 +1,15 @@
 """The PyTorch port's pipeline glue and the whole slice against the JAX
 package on the CPU.
 
-Glue (prefilter_select, the survivor selections, split_quota,
-resolve_prefilter, finish_window, pack_message_bits): identical numpy inputs,
-built with ties, give identical indices and arrays. End to end: the port's
-decode_raw against the JAX decode_raw on its kernel branch (Pallas kernels in
-interpret mode, as tests/test_pallas.py runs it) on a +8 dB ping, the -4 dB
-stimulus, noise, and two pings overlapping in time: the decode sets, per
-message (num_avg, nbadsync, f0), and the count of found rows are identical."""
+Glue (prefilter_select, the survivor selections with slice and mask
+segments, split_quota, resolve_prefilter, finish_window, pack_message_bits):
+identical numpy inputs, built with ties, give identical indices and arrays.
+End to end, on a +8 dB ping, the -4 dB stimulus, noise, and two pings
+overlapping in time: the port's decode_raw against the JAX decode_raw on its
+kernel branch (Pallas kernels in interpret mode, as tests/test_pallas.py runs
+it) with the prefilter on, and on its jnp branch with the prefilter off (the
+full demod): the decode sets, per message (num_avg, nbadsync, f0), and the
+count of found rows are identical."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -77,12 +79,55 @@ def test_select_survivors_quota_and_split_quota(nc, k, P):
     offs = np.cumsum([0] + pipeline.split_quota(nc, P))
     quotas = list(zip(pipeline.split_quota(k, P),
                       [slice(int(offs[p]), int(offs[p + 1])) for p in range(P)]))
-    ours = pipeline.select_survivors_quota(torch.from_numpy(nbad), torch.from_numpy(xb), k,
+    ours = pipeline.select_survivors_quota(torch.from_numpy(nbad), torch.from_numpy(xb), k, 1,
                                            quotas)
     for b in range(2):
         ref = jpipeline.select_survivors_quota(jnp.asarray(nbad[b]), jnp.asarray(xb[b]), k, 1,
                                                quotas)
         np.testing.assert_array_equal(ours[b].numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("thr", [1, 3, 5])
+@pytest.mark.parametrize("F,P,kc,K", [(13, 6, 8, 128), (9, 8, 5, 60), (7, 4, 8, 224)])
+def test_full_grid_selection_identical(F, P, kc, K, thr):
+    """The full-grid survivor choice (mask segments p_idx == p, each by the
+    single-key top_k; threshold 5 takes the two-key sort over all rows)
+    equals prepare_window's non-prefilter branch index for index, on tied
+    keys, including a quota that takes a whole pattern (K = nc)."""
+    rng = np.random.default_rng(F * P + thr)
+    nc = F * P * kc
+    nbad = rng.integers(0, 6, (2, nc)).astype(np.int32)
+    xb = (rng.integers(0, 6, (2, nc)) / 4.0).astype(np.float32)  # ties, 0 included
+    p_idx = np.arange(nc) % (P * kc) // kc
+    cfg = DecoderConfig(max_survivors=K, nbadsync_threshold=thr, scan_depth=P)
+    ours = pipeline.survivor_index(torch.from_numpy(nbad), torch.from_numpy(xb), cfg,
+                                   torch.from_numpy(p_idx))
+    for b in range(2):
+        jn, jx = jnp.asarray(nbad[b]), jnp.asarray(xb[b])
+        if thr <= jpipeline.TOPK_MAX_THRESHOLD:
+            segs = [jnp.asarray(p_idx == p) for p in range(P)]
+            ref = jpipeline.select_survivors_quota(
+                jn, jx, K, thr, list(zip(jpipeline.split_quota(K, P), segs)))
+        else:
+            ref = jpipeline.select_survivors(jn, jx, K)
+        np.testing.assert_array_equal(ours[b].numpy(), np.asarray(ref))
+    full = pipeline.survivor_index(torch.from_numpy(nbad), torch.from_numpy(xb),
+                                   cfg.replace(max_survivors=nc), torch.from_numpy(p_idx))
+    assert sorted(full[0].tolist()) == list(range(nc))
+
+
+def test_select_survivors_topk_mask_identical():
+    rng = np.random.default_rng(21)
+    nbad = rng.integers(0, 6, (2, 240)).astype(np.int32)
+    xb = (rng.integers(0, 4, (2, 240)) * 0.5).astype(np.float32)
+    mask = np.arange(240) % 3 == 1
+    ours = pipeline.select_survivors_topk(torch.from_numpy(nbad), torch.from_numpy(xb), 90, 3,
+                                          mask=torch.from_numpy(mask))
+    for b in range(2):
+        ref = jpipeline.select_survivors_topk(jnp.asarray(nbad[b]), jnp.asarray(xb[b]), 90, 3,
+                                              mask=jnp.asarray(mask))
+        np.testing.assert_array_equal(ours[b].numpy(), np.asarray(ref))
+    assert mask[ours[:, :80].numpy()].all()  # the mask's 80 rows rank first
 
 
 def test_resolve_prefilter_matches_kernel_branch():
@@ -130,8 +175,6 @@ def test_finish_window_identical():
 
 def test_unimplemented_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.DecodePipeline(DecoderConfig(survivor_prefilter=0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         pipeline.DecodePipeline(DecoderConfig(), chan_valid=np.ones(101, bool))
 
 
@@ -175,3 +218,27 @@ def test_decode_raw_matches_jax_kernel_branch():
         assert s_ours == s_ref, (b, s_ours, s_ref)
         assert set(s_ours[0]) == expect[b], (b, s_ours)
     assert ours.num_survivors.shape == (4,) and ours.block_power.shape == (4, 8)
+
+
+def test_decode_raw_full_demod_matches_jax():
+    """survivor_prefilter=0 against the JAX package's own CPU path for that
+    branch (jnp scan, softbits.demod_candidates, selection over the whole
+    grid, jnp BP). num_survivors counts the whole grid on both sides; the
+    all-frames pattern's scan lags tie by construction (ROADMAP C), so the
+    counts agree within 1 %."""
+    raw = stimuli()
+    cfg = DecoderConfig(survivor_prefilter=0, **E2E)
+    pipe = pipeline.DecodePipeline(cfg)
+    assert pipe.pre == 0
+    ours = pipe(torch.from_numpy(raw))
+    ref = jpipeline.decode_raw(jnp.asarray(raw),
+                               JaxConfig(survivor_prefilter=0, use_pallas=False, **E2E))
+    expect = [{"CQ K1ABC FN42"}, {"CQ K1ABC FN42"}, set(),
+              {"K1ABC W9XYZ EN37", "W9XYZ K1ABC RR73"}]
+    for b in range(len(raw)):
+        s_ours, s_ref = summary(ours, cfg, b), summary(ref, cfg, b)
+        assert s_ours == s_ref, (b, s_ours, s_ref)
+        assert set(s_ours[0]) == expect[b], (b, s_ours)
+    n_ours, n_ref = ours.num_survivors.numpy(), np.asarray(ref.num_survivors)
+    assert (np.abs(n_ours - n_ref) <= 0.01 * n_ref).all(), (n_ours, n_ref)
+    assert (n_ours > cfg.max_survivors).all()  # the full grid overflows K here
