@@ -34,6 +34,26 @@ caught, and any failure exits non-zero.
   6. timing with CUDA events: ms/window and x real time at the default and
      deep configs at B=1 and B=64 and of the full-demod path at the deep
      config, the per-stage split, each kernel beside its plain version
+  7. the throughput CLI on the card: on the demo, --window-batch=8
+     --pipeline-depth=4 prints the lines of --window-batch=1 on the card and
+     of --device=cpu, with the prefilter on and off; on a long stream (the
+     demo tiled to 600 windows) at --window-batch=64, --pipeline-depth=1
+     and =4 print the same lines on the default and the deep config, and
+     each run's Throughput line is logged; the native framer is in use and
+     frames the demo as the numpy framer does; the throughput mode driven in
+     this process on the framer's windows prints the CLI's lines and
+     launches each path's kernels; --profile-dir writes a trace that names
+     a kernel
+  8. sharding on the card: MeshDecoder on [cuda:0] x 4 at meshes (1, 4) and
+     (2, 2), on the demo and the busy band, with the prefilter on and off:
+     its decode summary equals MeshDecoder on the CPU at the same mesh and
+     holds the unsharded decode's messages, and the kernels launch on that
+     path; its ms/window at (1, 4) beside the unsharded pipeline's; the
+     parallel runner in this process at mesh (2, 4) on cuda:0 decodes both
+     messages of a two-row capture and launches the kernels; then
+     `python -m msk144cudecoder_tpu_torch.parallel` as two gloo processes
+     on cuda:0: each prints only its own time row's message, rank 0 ends
+     with Done
 
 The line before the last is the JSON kernel table; the last line is the JSON
 device record.
@@ -46,8 +66,11 @@ import io
 import json
 import os
 import pathlib
+import re
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -87,8 +110,6 @@ def cuda_time(fn, reps: int, warmup: int = 2) -> float:
 
 
 def strip_date(lines: str) -> list[str]:
-    import re
-
     return [re.sub(r"date=\d+;", "date=;", ln) for ln in lines.splitlines()]
 
 
@@ -305,9 +326,11 @@ def main() -> int:
              ("full", ("--survivor-prefilter=0",), DecoderConfig(survivor_prefilter=0),
               ("scan", "demod", "bp"), "Warning: "))
     path_counts = {}
+    cli_lines = {}  # tag -> (card, cpu) stdout, for phase 7
     for tag, flags, cfg, path_kernels, warn in paths:
         out_gpu, err_gpu = run_cli(DEVICE, demo_path, *flags)
         out_cpu, _ = run_cli("cpu", demo_path, *flags)
+        cli_lines[tag] = (out_gpu, out_cpu)
         msgs = {ln.split("msg='")[1].split("'")[0] for ln in out_gpu.splitlines()
                 if "msg='" in ln}
         assert msgs == DEMO_MESSAGES, (tag, msgs)
@@ -409,6 +432,9 @@ def main() -> int:
         f"{len(lats)} windows: median {np.median(lats):.3f} ms, max {max(lats):.3f} ms, "
         f"of the {C.LOOP_SOFT_BUDGET_MS:g} ms loop budget  ({card})")
 
+    phase7_throughput_cli(paths, cli_lines, demo, demo_windows, card)
+    phase8_sharding(demo_windows, bb_cfg, bb_windows, card)
+
     print(json.dumps({"kernels": [{k: r[k] for k in ("name", "route", "source", "replaces",
                                                    "launches", "max_abs_err", "ms",
                                                    "plain_ms")} for r in kernel_rows]}))
@@ -416,6 +442,261 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(dev),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+DEEP_FLAGS = ("--search-width=500", "--search-step=1", "--scan-depth=6",
+              "--nbadsync-threshold=3")
+KERNEL_NAMES = ("scan_kernel", "survivor_kernel", "demod_kernel", "bp_kernel")
+
+
+def phase7_throughput_cli(paths, cli_lines, demo, demo_windows, card) -> None:
+    """The pipelined throughput mode, the native framer and --profile-dir."""
+    import torch
+
+    from msk144cudecoder_tpu_torch import cli
+    from msk144cudecoder_tpu_torch import constants as C
+    from msk144cudecoder_tpu_torch.config import DecoderConfig
+    from msk144cudecoder_tpu_torch.ops import kernels
+    from msk144cudecoder_tpu_torch.runtime import StreamDecoder, native
+    from msk144cudecoder_tpu_torch.runtime.stream import window_stream
+
+    deep = DecoderConfig(search_width=500.0, search_step=1.0, scan_depth=6, nbadsync_threshold=3)
+
+    demo_path = ROOT / "demo" / "capture.raw"
+    for tag, flags, *_ in paths:
+        out_b, err_b = run_cli(DEVICE, demo_path, "--window-batch=8", "--pipeline-depth=4",
+                               *flags)
+        out_gpu, out_cpu = cli_lines[tag]
+        assert strip_date(out_b) == strip_date(out_gpu) == strip_date(out_cpu), (tag, out_b)
+        assert "Throughput:" in err_b, err_b
+        log(f"[cli {tag}] --window-batch=8 --pipeline-depth=4 {' '.join(flags)}: "
+            f"{len(out_b.splitlines()) - 1} lines, equal to --window-batch=1 on the card "
+            "and to --device=cpu")
+
+    assert native.available()
+    with contextlib.redirect_stderr(io.StringIO()):
+        nat = list(native.native_window_stream(io.BytesIO(demo.tobytes()), 1, chunk_bytes=4099))
+        ref = list(window_stream(io.BytesIO(demo.tobytes()), 1))
+    assert len(nat) == len(ref) == len(demo_windows)
+    assert all(np.array_equal(a, b) for a, b in zip(nat, ref))
+    log(f"[native] framer {native.library_path().name} in use: {len(nat)} demo windows "
+        "equal to the numpy framer's")
+
+    # the throughput mode in this process, so that its launches are counted:
+    # the native framer's windows through cli.decode_throughput, each path
+    # driven with the counts set to 0 just before it and read just after
+    for tag, flags, cfg, path_kernels, _ in paths:
+        decoder = StreamDecoder(cfg, DEVICE)
+        out = io.StringIO()
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+            cli.decode_throughput(decoder, nat, 8, 4)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert all((n > 0) == (k in path_kernels) for k, n in counts.items()), (tag, counts)
+        assert strip_date(out.getvalue()) == strip_date(cli_lines[tag][0])[:-1], tag
+        log(f"[cli {tag}] decode_throughput in process, B=8 depth 4: the CLI's lines; "
+            f"launches {counts}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        n_win = 600  # 130 s of audio
+        long = np.tile(demo, -(-(n_win + 1) * C.HOP_LEN // len(demo)))[: (n_win + 1) * C.HOP_LEN]
+        long_path = pathlib.Path(tmp) / "long.raw"
+        long_path.write_bytes(long.tobytes())
+        long_windows = np.stack([long[i * C.HOP_LEN:i * C.HOP_LEN + C.WINDOW_LEN]
+                                 for i in range(n_win)])
+        for name, flags, cfg in (("default", (), DecoderConfig()), ("deep", DEEP_FLAGS, deep)):
+            outs = []
+            for depth in (1, 4, 4, 1):  # in turns
+                t0 = time.perf_counter()
+                out, err = run_cli(DEVICE, long_path, "--window-batch=64",
+                                   f"--pipeline-depth={depth}", *flags)
+                wall = time.perf_counter() - t0
+                outs.append(strip_date(out))
+                thr = [ln for ln in err.splitlines() if ln.startswith("Throughput:")]
+                assert len(thr) == 1, err[-2000:]
+                log(f"[throughput] {name} B=64 depth {depth}, {n_win} windows: {thr[0]}; "
+                    f"whole process {wall:.2f} s  ({card})")
+            assert all(o == outs[0] for o in outs), name
+            msgs = {ln.split("msg='")[1].split("'")[0] for ln in outs[0] if "msg='" in ln}
+            assert msgs == DEMO_MESSAGES, (name, msgs)
+            log(f"[throughput] {name}: depth 1 and 4 print the same {len(outs[0]) - 1} lines")
+            # the CLI's per-batch host work in one thread, split: the device
+            # call with its fetch (decode_to_host), then unpack and dedup
+            dec = StreamDecoder(cfg, DEVICE)
+            batches = [long_windows[i:i + 64] for i in range(0, n_win - 63, 64)]
+            with contextlib.redirect_stderr(io.StringIO()):
+                dec.postprocess_batch(dec.decode_to_host(batches[0]), 64)
+                t_call = t_post = 0.0
+                for b in batches:
+                    t0 = time.perf_counter()
+                    res = dec.decode_to_host(b)
+                    t1 = time.perf_counter()
+                    dec.postprocess_batch(res, 64)
+                    t_call += t1 - t0
+                    t_post += time.perf_counter() - t1
+            n = 64 * len(batches)
+            log(f"[throughput] {name} B=64 in one thread, {n} windows (host clock): "
+                f"decode_to_host {t_call / n * 1e3:.4f} ms/window, postprocess_batch "
+                f"{t_post / n * 1e3:.4f} ms/window  ({card})")
+
+        prof = pathlib.Path(tmp) / "prof"
+        _, err = run_cli(DEVICE, demo_path, "--window-batch=8", "--pipeline-depth=4",
+                         f"--profile-dir={prof}")
+        assert f"Profiler trace written to {prof}" in err, err[-2000:]
+        trace = (prof / "trace.json").read_text()
+        named = [k for k in KERNEL_NAMES if k in trace]
+        assert named, "the trace names none of the four kernels"
+        log(f"[profile] {len(trace)} bytes of trace; kernels named: {named}")
+
+
+def mesh_summary(cfg, freqs, res) -> list[dict]:
+    """Per window: message -> the lowest (num_avg, nbadsync, f0) of its found
+    rows (the row the CLI prints); freqs is the grid the candidate indices
+    refer to."""
+    from msk144cudecoder_tpu_torch import constants as C
+    from msk144cudecoder_tpu_torch.ops import pipeline
+    from msk144cudecoder_tpu_torch.protocol import msg77
+
+    out = []
+    hashes = msg77.CallsignHashTable()
+    for b in range(res.found.shape[0]):
+        best = {}
+        for k in np.nonzero(res.found[b])[0]:
+            ok, text = msg77.unpack77(pipeline.unpack_message_bits(res.message_bits[b][k]),
+                                      hashes)
+            if ok:
+                fi, pi, _ = pipeline.unpack_candidate_index(cfg, int(res.cand_index[b][k]))
+                key = (int(C.PATTERN_NUM_AVG[pi]), int(res.nbadsync[b][k]), float(freqs[fi]))
+                best[text] = min(best.get(text, key), key)
+        out.append(best)
+    return out
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase8_sharding(demo_windows, bb_cfg, bb_windows, card) -> None:
+    """MeshDecoder on one card against its CPU run, and the two-process
+    parallel runner on cuda:0."""
+    import torch
+
+    from msk144cudecoder_tpu_torch import constants as C
+    from msk144cudecoder_tpu_torch import stimulus
+    from msk144cudecoder_tpu_torch.config import DecoderConfig
+    from msk144cudecoder_tpu_torch.ops import kernels, pipeline
+    from msk144cudecoder_tpu_torch.parallel import MeshDecoder, make_mesh
+    from msk144cudecoder_tpu_torch.parallel import cli as parallel_cli
+    from msk144cudecoder_tpu_torch.runtime.decoder import to_host
+
+    dev = torch.device(DEVICE)
+
+    def chunked(md, windows):
+        """Decode in chunks of 4 windows (memory of the CPU's plain path)."""
+        out = []
+        for lo in range(0, len(windows), 4):
+            out += mesh_summary(md.cfg, md.freqs, md.decode(windows[lo:lo + 4]))
+        return out
+
+    inputs = (("demo", DecoderConfig(), demo_windows), ("busy", bb_cfg, bb_windows))
+    for (n_time, n_freq) in ((1, 4), (2, 2)):
+        for name, base, windows in inputs:
+            for pre in (None, 0):
+                cfg = base.replace(survivor_prefilter=pre)
+                n = n_time * n_freq
+                md_gpu = MeshDecoder(cfg, make_mesh(n_time, n_freq, [dev] * n))
+                kernels.reset_launch_counts()
+                got = chunked(md_gpu, windows)
+                torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+                want = chunked(MeshDecoder(cfg, make_mesh(n_time, n_freq, ["cpu"] * n)), windows)
+                assert got == want, (name, n_time, n_freq, pre, got, want)
+                demod_kernel = "survivor" if pre is None else "demod"
+                assert all(counts[k] > 0 for k in ("scan", demod_kernel, "bp")), counts
+                pipe = pipeline.DecodePipeline(cfg).to(dev)
+                unsharded = set()
+                for lo in range(0, len(windows), 4):
+                    res = to_host(pipe(torch.from_numpy(windows[lo:lo + 4]).to(dev)))
+                    unsharded |= {m for s in mesh_summary(cfg, cfg.freqs, res) for m in s}
+                sharded = {m for s in got for m in s}
+                assert unsharded and unsharded <= sharded, (unsharded, sharded)
+                log(f"[mesh] ({n_time}, {n_freq}) on {DEVICE} x {n}, {name}, prefilter "
+                    f"{'auto' if pre is None else pre}: equal to the CPU mesh, "
+                    f"{sorted(sharded)} holds the unsharded {sorted(unsharded)}; launches {counts}")
+
+    # ms/window at B=64: MeshDecoder (1, 4) on one card against the unsharded
+    # pipeline, both with the fetch to the host (host clock)
+    raw = np.stack([demo_windows[i % len(demo_windows)] for i in range(64)])
+    md = MeshDecoder(DecoderConfig(), make_mesh(1, 4, [dev] * 4))
+    pipe = pipeline.DecodePipeline(DecoderConfig()).to(dev)
+    raw_dev = torch.from_numpy(raw)
+
+    def host_ms(fn, reps=5):
+        for _ in range(2):
+            fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    for _ in range(2):  # in turns: unsharded, mesh, mesh, unsharded
+        ms_one = host_ms(lambda: to_host(pipe(raw_dev.to(dev))))
+        ms_mesh = host_ms(lambda: md.decode(raw))
+        log(f"[mesh time] default B=64, with the fetch: unsharded {ms_one / 64:.4f} ms/window, "
+            f"MeshDecoder (1, 4) on one card {ms_mesh / 64:.4f} ms/window  ({card})")
+
+    # two processes on one card, joined by gloo
+    rng = np.random.default_rng(5)
+    a1 = stimulus.synthesize_audio_int16([("CQ K1ABC FN42", 1500.0)], 6, snr_db=10.0, rng=rng)
+    a2 = stimulus.synthesize_audio_int16([("K1ABC W9XYZ R-03", 1480.0)], 6, snr_db=10.0, rng=rng)
+    noise = rng.normal(0, 1000, C.HOP_LEN * 2).astype(np.int16)
+    with tempfile.TemporaryDirectory() as tmp:
+        cap = pathlib.Path(tmp) / "capture.raw"
+        cap.write_bytes(np.concatenate([a1, noise, a2]).tobytes())
+        # the runner in this process, so that its launches are counted: a
+        # (2, 4) mesh on cuda:0 decodes both messages
+        out = io.StringIO()
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+            rc = parallel_cli.main([f"--device={DEVICE}", "--input", str(cap),
+                                    "--search-width=100", "--scan-depth=3",
+                                    "--mesh-time=2", "--mesh-freq=4"])
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert rc == 0 and out.getvalue().strip().endswith("Done"), (rc, out.getvalue())
+        # F = 51 pads to 52: 13 channels x 3 patterns x 8 = 312 candidates
+        # per shard, under the auto prefilter's 512 rows, so every shard
+        # resolves its prefilter to 0 and runs the full demod
+        assert all(counts[k] > 0 for k in ("scan", "demod", "bp")), counts
+        assert counts["survivor"] == 0, counts
+        assert "msg='CQ K1ABC FN42'" in out.getvalue(), out.getvalue()
+        assert "msg='K1ABC W9XYZ R-03'" in out.getvalue(), out.getvalue()
+        log(f"[parallel] one process, mesh (2, 4) on {DEVICE}: both messages, "
+            f"launches {counts}")
+        port = free_port()
+        env = dict(os.environ, OMP_NUM_THREADS="2")
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "msk144cudecoder_tpu_torch.parallel", f"--device={DEVICE}",
+             "--input", str(cap), "--search-width=100", "--scan-depth=3", "--mesh-freq=4",
+             "--coordinator", f"127.0.0.1:{port}", "--num-processes=2", f"--process-id={pid}"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT, env=env)
+            for pid in range(2)]
+        try:
+            outs = [p.communicate(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+    for pid, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, (pid, err[-3000:])
+    assert "msg='CQ K1ABC FN42'" in outs[0][0] and "R-03" not in outs[0][0], outs[0][0]
+    assert "msg='K1ABC W9XYZ R-03'" in outs[1][0] and "FN42" not in outs[1][0], outs[1][0]
+    assert outs[0][0].strip().endswith("Done") and "Done" not in outs[1][0]
+    mesh_line = [ln for ln in outs[0][1].splitlines() if ln.startswith("Mesh:")]
+    log(f"[parallel] two gloo processes on {DEVICE}: rank 0 printed only row 0's message "
+        f"and Done, rank 1 only row 1's; {mesh_line[0]}")
 
 
 def stage_split(pipe, raw, reps: int) -> dict:

@@ -1,16 +1,22 @@
 """Command-line interface: stdin samples in, decoded message lines out.
 
 The flags, defaults, banner and output line of the JAX package's CLI
-(msk144cudecoder_tpu/cli.py), which mirror the reference decoder. The port
-differs in three ways: `--device` (default cuda) replaces `--platform`; the
-banner says `Precision: fp32`, since the port computes in float32 whatever
-`--exact-math` says; and `--window-batch > 1` decodes each batch
-synchronously (no worker pool yet), with the numpy framer.
+(msk144cudecoder_tpu/cli.py), which mirror the reference decoder, and its
+two modes: window by window with the next window's device work enqueued
+before the previous one is post-processed, and the throughput mode
+(`--window-batch > 1`), where up to `--pipeline-depth` batches decode at
+once on a worker pool (each on its own CUDA stream on a card) while
+post-processing stays in stream order. The native C++ framer reads stdin
+when it can be built, the numpy one otherwise. The port differs in two
+ways: `--device` (default cuda) replaces `--platform`, and the banner says
+`Precision: fp32`, since the port computes in float32 whatever
+`--exact-math` says. `--profile-dir` writes a torch.profiler trace.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 from typing import List, Optional
 
@@ -59,14 +65,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--window-batch", type=int, default=1,
                    help="windows decoded per device call")
     p.add_argument("--pipeline-depth", type=int, default=4,
-                   help="accepted for compatibility; batches run one at a "
-                        "time in this port")
+                   help="batches in flight in throughput mode (window-batch "
+                        "> 1): device calls for up to this many batches run "
+                        "concurrently, each on its own CUDA stream, while "
+                        "post-processing stays in stream order; 1 = fully "
+                        "synchronous (default 4)")
     p.add_argument("--exact-math", action="store_true",
                    help="accepted for compatibility; the port always "
                         "computes in fp32")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to decode on: cuda (default), cuda:N "
                         "or cpu (the kernels' plain torch versions)")
+    p.add_argument("--profile-dir", type=str, default=None,
+                   help="write a torch.profiler Chrome trace (host ops and, "
+                        "on a card, CUDA kernels) of the decode loop to this "
+                        "directory")
     return p
 
 
@@ -140,73 +153,176 @@ def main(argv: Optional[List[str]] = None) -> int:
     device = resolve_device(args.device)
     print_banner(cfg, device)
 
-    import numpy as np
-
-    from .runtime import StreamDecoder
-    from .runtime.metrics import ScopedMetric, SimpleTimer
+    from .runtime import StreamDecoder, native
     from .runtime.stream import window_stream
 
     decoder = StreamDecoder(cfg, device)
-    windows = window_stream(sys.stdin.buffer, cfg.read_mode)
+    stdin = sys.stdin.buffer
+    # the native C++ framer, built on first use; the numpy one without g++
+    if native.available():
+        windows = native.native_window_stream(stdin, cfg.read_mode)
+    else:
+        windows = window_stream(stdin, cfg.read_mode)
 
-    def emit(results, ms: float, n_windows: int):
-        budget = C.LOOP_SOFT_BUDGET_MS * n_windows
-        if ms > budget:
-            print(
-                f"Warning: Working loop takes too much time: {ms:.0f} ms"
-                f" of {budget:.0f} ms max.",
-                file=sys.stderr,
-            )
-        for item in results:
-            print(item.format_line(), flush=True)
+    with (profile_to(args.profile_dir, device) if args.profile_dir
+          else contextlib.nullcontext()):
+        if cfg.window_batch <= 1:
+            decode_windowed(decoder, windows)
+        else:
+            decode_throughput(decoder, windows, cfg.window_batch, args.pipeline_depth)
+    if args.profile_dir:
+        print(f"Profiler trace written to {args.profile_dir}", file=sys.stderr)
 
-    if cfg.window_batch <= 1:
-        # depth-1 pipelining: the next window's device work is enqueued
-        # before the previous one's results are fetched and post-processed
-        timer = SimpleTimer()
-        win_iter = iter(windows)
-        while True:
-            loop_span = ScopedMetric("working_loop")
-            with ScopedMetric("ingest"):
-                window = next(win_iter, None)
-            if window is None:
-                loop_span.stop()
-                break
-            with ScopedMetric("submit"):
-                decoder.submit(window)
-            if decoder.in_flight > 1:
-                with ScopedMetric("collect"):
-                    results = decoder.collect()
-                emit(results, timer.milliseconds_elapsed(), 1)
-                timer = SimpleTimer()
+    print("Done")
+    return 0
+
+
+def emit(results, ms: float, n_windows: int) -> None:
+    """Print a window's decode lines; warn when the loop took longer than
+    its budget for n_windows windows."""
+    budget = C.LOOP_SOFT_BUDGET_MS * n_windows
+    if ms > budget:
+        print(
+            f"Warning: Working loop takes too much time: {ms:.0f} ms"
+            f" of {budget:.0f} ms max.",
+            file=sys.stderr,
+        )
+    for item in results:
+        print(item.format_line(), flush=True)
+
+
+def decode_windowed(decoder, windows) -> None:
+    """Window by window, depth-1 pipelined: the next window's device work is
+    enqueued before the previous one's results are fetched and
+    post-processed. ScopedMetric spans as in the JAX CLI
+    (MSK144_TPU_METRICS=1)."""
+    from .runtime.metrics import ScopedMetric, SimpleTimer
+
+    timer = SimpleTimer()
+    win_iter = iter(windows)
+    while True:
+        loop_span = ScopedMetric("working_loop")
+        with ScopedMetric("ingest"):
+            window = next(win_iter, None)
+        if window is None:
             loop_span.stop()
-        while decoder.in_flight:
+            break
+        with ScopedMetric("submit"):
+            decoder.submit(window)
+        if decoder.in_flight > 1:
             with ScopedMetric("collect"):
                 results = decoder.collect()
             emit(results, timer.milliseconds_elapsed(), 1)
             timer = SimpleTimer()
-    else:
-        # throughput mode, synchronous: one device call per batch of
-        # window_batch windows, the stream tail zero-padded and its pad
-        # results dropped
-        def run(batch_list, n_valid: int):
-            timer = SimpleTimer()
-            pad = [np.zeros_like(batch_list[0])] * (cfg.window_batch - len(batch_list))
-            for results in decoder.decode_many(np.stack(batch_list + pad), n_valid):
-                emit(results, 0.0, 1)
-            emit([], timer.milliseconds_elapsed(), n_valid)
+        loop_span.stop()
+    while decoder.in_flight:
+        with ScopedMetric("collect"):
+            results = decoder.collect()
+        emit(results, timer.milliseconds_elapsed(), 1)
+        timer = SimpleTimer()
 
+
+def decode_throughput(decoder, windows, window_batch: int, pipeline_depth: int) -> None:
+    """Throughput mode: window_batch windows per device call, with up to
+    pipeline_depth batches' device calls (decode_to_host) in flight on a
+    worker pool, while post-processing and output stay in stream order on
+    this thread. The stream tail is zero-padded and its pad results
+    dropped. Prints the steady-state Throughput line (after the first
+    batch, which carries the kernels' first-use cost) on stderr."""
+    import time
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from .runtime.metrics import ScopedMetric
+
+    depth = max(1, pipeline_depth)
+    pending: deque = deque()  # (future, n_valid) FIFO
+    n_done = 0  # windows post-processed after the first batch
+    t_steady = None  # wall clock at the first batch's completion
+    last_done = None  # wall clock at the previous batch's completion
+
+    def drain_one():
+        nonlocal n_done, t_steady, last_done
+        fut, n = pending.popleft()
+        with ScopedMetric("device_wait_transfer"):
+            res = fut.result()
+        now = time.perf_counter()
+        ms = 0.0 if last_done is None else (now - last_done) * 1e3
+        last_done = now
+        if t_steady is None:
+            t_steady = now
+        else:
+            n_done += n
+        with ScopedMetric("postprocess"):
+            for results in decoder.postprocess_batch(res, n):
+                emit(results, 0.0, 1)
+        emit([], ms, n)
+
+    def submit(batch_np: np.ndarray, n_valid: int):
+        # gate on batches still computing, not on batches awaiting
+        # post-processing: waiting for the oldest would idle every worker
+        # behind one slow batch. Finished results wait in the deque
+        # (bounded by 4 * depth) for their turn in stream order.
+        while (sum(not f.done() for f, _ in pending) >= depth
+               or len(pending) >= 4 * depth):
+            drain_one()
+        pending.append((pool.submit(decoder.decode_to_host, batch_np), n_valid))
+        while pending and pending[0][0].done():
+            drain_one()
+
+    with ThreadPoolExecutor(max_workers=depth) as pool:
         batch: list = []
         for window in windows:
             batch.append(window)
-            if len(batch) == cfg.window_batch:
-                run(batch, len(batch))
+            if len(batch) == window_batch:
+                submit(np.stack(batch), window_batch)
                 batch = []
         if batch:
-            run(batch, len(batch))
+            n = len(batch)
+            pad = [np.zeros_like(batch[0])] * (window_batch - n)
+            submit(np.stack(batch + pad), n)
+        while pending:
+            drain_one()
+    if n_done and t_steady is not None and last_done is not None and last_done > t_steady:
+        wall = last_done - t_steady
+        ms_per = wall / n_done * 1e3
+        rtf = (n_done * C.HOP_LEN) / wall / C.SAMPLE_RATE
+        print(
+            f"Throughput: {n_done} windows in {wall:.2f} s = "
+            f"{ms_per:.3f} ms/window ({rtf:,.1f}x real time, "
+            f"steady-state after first batch)",
+            file=sys.stderr,
+        )
 
-    print("Done")
-    return 0
+
+@contextlib.contextmanager
+def profile_to(directory: str, device):
+    """torch.profiler over the enclosed block (host ops, and CUDA kernels on
+    a card); the Chrome trace goes to directory/trace.json. The throughput
+    mode's device calls run on worker threads: their host ops are recorded
+    where torch can profile all threads; CUDA kernels are recorded from
+    every thread either way."""
+    import os
+
+    import torch
+    from torch._C._profiler import _ExperimentalConfig
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    try:
+        experimental = _ExperimentalConfig(profile_all_threads=True)
+    except TypeError:  # a torch without the option: the main thread's host ops
+        experimental = None
+    os.makedirs(directory, exist_ok=True)
+    with torch.profiler.profile(activities=activities,
+                                experimental_config=experimental) as prof:
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    prof.export_chrome_trace(os.path.join(directory, "trace.json"))
 
 
 if __name__ == "__main__":

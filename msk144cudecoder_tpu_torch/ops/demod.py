@@ -62,7 +62,7 @@ def demod_candidates_cuda(c: torch.Tensor, W: torch.Tensor, pos: torch.Tensor,
                                sb.data_ptr(), nbad.data_ptr(), nw, F, P, k,
                                kernels.stream_ptr(c.device))
         kernels.raise_on_error("msk_demod", rc)
-        demod_candidates_cuda.launches += 1
+        kernels.count_launch(demod_candidates_cuda)
     return sb, nbad
 
 

@@ -12,8 +12,13 @@ Each C entry point launches one kernel on the stream it is given and
 returns cudaGetLastError(); raise_on_error turns a nonzero code into an
 exception. Launch counts live on the wrappers (scan.scan_cuda.launches,
 survivor.demod_survivors_cuda.launches, demod.demod_candidates_cuda.launches,
-ldpc.bp_decode_cuda.launches); launch_counts / reset_launch_counts read and
-clear all four.
+ldpc.bp_decode_cuda.launches); count_launch adds to one, launch_counts /
+reset_launch_counts read and clear all four.
+
+Several threads may decode at once (the CLI's throughput mode runs its
+device calls on a worker pool): the first call builds the library under a
+lock, temporary build files carry the process and thread id, and the
+launch counts change under a lock.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
@@ -51,6 +57,8 @@ SIGNATURES = {
 }
 
 _lib = None  # the loaded library, once built
+_lib_lock = threading.Lock()  # one build and load per process
+_count_lock = threading.Lock()
 last_build_seconds = None  # wall time of this process's build, if any
 
 
@@ -92,9 +100,10 @@ def build() -> pathlib.Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    tmp = out.with_suffix(f".{tag}.tmp")
     srcs = sorted(CSRC_DIR.glob("*.cu"))
-    objs = [out.with_suffix(f".{src.stem}.{os.getpid()}.o") for src in srcs]
+    objs = [out.with_suffix(f".{src.stem}.{tag}.o") for src in srcs]
     t0 = time.perf_counter()
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-Xptxas=-v", "-c", "-o", str(obj), str(src)],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -120,18 +129,22 @@ def build() -> pathlib.Path:
 
 
 def library() -> ctypes.CDLL:
-    """The kernel library, built on first use. Raises if it cannot be built
-    or loaded: a CUDA tensor never falls back to the plain path."""
+    """The kernel library, built on first use, once per process whichever
+    thread asks first. Raises if it cannot be built or loaded: a CUDA tensor
+    never falls back to the plain path."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.msk_error_string.argtypes = (ctypes.c_int,)
-        lib.msk_error_string.restype = ctypes.c_char_p
-        _lib = lib
+    if _lib is not None:
+        return _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.msk_error_string.argtypes = (ctypes.c_int,)
+            lib.msk_error_string.restype = ctypes.c_char_p
+            _lib = lib
     return _lib
 
 
@@ -175,6 +188,13 @@ def check_tensors(op: str, **specs) -> None:
             raise ValueError(f"{op}: {name} must be contiguous")
 
 
+def count_launch(wrapper) -> None:
+    """One more launch of `wrapper`'s kernel (called right after the launch
+    succeeded)."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
 def launch_counts() -> dict[str, int]:
     from . import demod, ldpc, scan, survivor
 
@@ -187,7 +207,8 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     from . import demod, ldpc, scan, survivor
 
-    scan.scan_cuda.launches = 0
-    survivor.demod_survivors_cuda.launches = 0
-    demod.demod_candidates_cuda.launches = 0
-    ldpc.bp_decode_cuda.launches = 0
+    with _count_lock:
+        scan.scan_cuda.launches = 0
+        survivor.demod_survivors_cuda.launches = 0
+        demod.demod_candidates_cuda.launches = 0
+        ldpc.bp_decode_cuda.launches = 0

@@ -147,7 +147,7 @@ def bp_decode_cuda(llr: torch.Tensor, valid: torch.Tensor, lt: TorchLdpcTables,
                             found.data_ptr(), iters.data_ptr(), nerr.data_ptr(),
                             R, max_iters, kernels.stream_ptr(dev))
         kernels.raise_on_error("msk_bp", rc)
-        bp_decode_cuda.launches += 1
+        kernels.count_launch(bp_decode_cuda)
     return BPResult(found, cw, iters, nerr)
 
 

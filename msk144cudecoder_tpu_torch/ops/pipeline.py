@@ -269,28 +269,39 @@ def finish_stage(prep: PreparedWindows, bp: BPResult, block_power: torch.Tensor,
 
 
 class DecodePipeline(nn.Module):
-    """The decode of one configuration. Buffers: the frequency tables
-    (B, E in the scan's (F, N/dec) layout, chi, W), the analytic shift
-    carriers and FFT mask, the demod constants (sync vector, matched-filter
-    taps, pattern masks, sync word) and the LDPC edge tables NM/MN plus the
-    CRC matrix. forward(raw) runs all stages; the stage methods are public
-    so that a caller can time them one by one. `pre` is the resolved
-    prefilter size: 0 runs the full demod of every candidate (kernel B4)."""
+    """The decode of one configuration over one frequency grid. Buffers: the
+    frequency tables (B, E in the scan's (F, N/dec) layout, chi, W), the
+    analytic shift carriers and FFT mask, the demod constants (sync vector,
+    matched-filter taps, pattern masks, sync word), the LDPC edge tables
+    NM/MN plus the CRC matrix, and the channel mask. forward(raw) runs all
+    stages; the stage methods are public so that a caller can time them one
+    by one.
 
-    def __init__(self, cfg: DecoderConfig, chan_valid=None):
+    `freqs` is the grid (default cfg.freqs): a frequency shard passes its
+    slice of the padded grid, and all sizes, the prefilter included, follow
+    the local grid. `chan_valid` (F,) bool masks channels out of the
+    results (the sharding pad past the right boundary), as prepare_window
+    masks them: their xb is 0 before the prefilter, their nbadsync 17 after
+    the demod. `pre` is the resolved prefilter size: 0 runs the full demod
+    of every candidate (kernel B4)."""
+
+    def __init__(self, cfg: DecoderConfig, freqs=None, chan_valid=None):
         super().__init__()
-        if chan_valid is not None:
-            raise NotImplementedError(
-                "channel masks (the frequency sharding pad) are not ported yet "
-                "(ROADMAP: multi-GPU via torch.distributed)")
-        F = cfg.num_freqs
+        freqs = cfg.freqs if freqs is None else np.asarray(freqs, dtype=np.float64)
+        F = len(freqs)
         self.grid = (F, cfg.scan_depth, cfg.candidates_per_pattern)  # (F, P, k)
         self.nc = F * cfg.scan_depth * cfg.candidates_per_pattern
         self.pre = resolve_prefilter(cfg, self.nc)
         self.cfg = cfg
         self.per_cell = prefilter_per_cell(cfg, F * cfg.scan_depth, self.pre)
 
-        t = tables.cached_freq_tables(tuple(float(f) for f in cfg.freqs))
+        if chan_valid is not None:
+            chan_valid = torch.as_tensor(np.asarray(chan_valid, dtype=bool))
+            if chan_valid.shape != (F,):
+                raise ValueError(f"chan_valid has shape {tuple(chan_valid.shape)}, "
+                                 f"expected ({F},)")
+        self.register_buffer("chan_valid", chan_valid)
+        t = tables.cached_freq_tables(tuple(float(f) for f in freqs))
         tt = tables.to_torch(t, "cpu")
         self.register_buffer("B", tt.B)
         self.register_buffer("E_dec", tables.e_decimated(tt.E, cfg.scan_decimation))
@@ -334,7 +345,11 @@ class DecodePipeline(nn.Module):
     def prefilter(self, pos: torch.Tensor, xb: torch.Tensor):
         """The rows to demodulate, (xb, pos, f_idx, p_idx, flat_idx) each
         (B, rows): the prefilter's top `pre` rows, pattern-major, or with
-        the prefilter off every candidate of the grid in (F, P, k) order."""
+        the prefilter off every candidate of the grid in (F, P, k) order.
+        Masked channels' xb is 0 on both paths."""
+        if self.chan_valid is not None:
+            xb = torch.where(self.chan_valid[:, None, None], xb,
+                             torch.zeros((), dtype=xb.dtype, device=xb.device))
         if self.pre:
             return prefilter_select(xb, pos, self.pre, self.per_cell)
         nb = pos.shape[0]
@@ -347,15 +362,22 @@ class DecodePipeline(nn.Module):
 
     def demod(self, c: torch.Tensor, front):
         """(softbits (B, rows, 128), nbadsync (B, rows)) of the front's rows:
-        kernel B2 on the prefiltered rows, kernel B4 on the full grid."""
+        kernel B2 on the prefiltered rows, kernel B4 on the full grid.
+        Masked channels' rows get nbadsync 17, above any threshold."""
         _, pos_f, f_idx, p_idx, _ = front
         if self.pre:
-            return survivor.demod_survivors(c, self.W, self.chi, pos_f, f_idx, p_idx,
-                                            self.demod_tables)
-        nb = pos_f.shape[0]
-        sb, nbad = demod.demod_candidates(c, self.W, pos_f.reshape((nb,) + self.grid),
-                                          self.demod_tables)
-        return sb.reshape(nb, self.nc, C.NUM_DATA_BITS), nbad.reshape(nb, self.nc)
+            sb, nbad = survivor.demod_survivors(c, self.W, self.chi, pos_f, f_idx, p_idx,
+                                                self.demod_tables)
+        else:
+            nb = pos_f.shape[0]
+            sb, nbad = demod.demod_candidates(c, self.W, pos_f.reshape((nb,) + self.grid),
+                                              self.demod_tables)
+            sb = sb.reshape(nb, self.nc, C.NUM_DATA_BITS)
+            nbad = nbad.reshape(nb, self.nc)
+        if self.chan_valid is not None:
+            nbad = torch.where(self.chan_valid[f_idx.long()], nbad,
+                               torch.full((), 17, dtype=nbad.dtype, device=nbad.device))
+        return sb, nbad
 
     def select(self, sb_f, nbad_f, front) -> PreparedWindows:
         xb_f, pos_f, _, p_idx, flat_idx = front

@@ -136,7 +136,7 @@ def scan_cuda(c: torch.Tensor, B: torch.Tensor, E_dec: torch.Tensor,
                               nw, F, scan_depth, num_cand, dec,
                               kernels.stream_ptr(c.device))
         kernels.raise_on_error("msk_scan", rc)
-        scan_cuda.launches += 1
+        kernels.count_launch(scan_cuda)
     return pos, xb
 
 

@@ -112,7 +112,7 @@ def demod_survivors_cuda(c: torch.Tensor, W: torch.Tensor, chi: torch.Tensor,
                                   sb.data_ptr(), nbad.data_ptr(), nw, S, F,
                                   kernels.stream_ptr(c.device))
         kernels.raise_on_error("msk_survivor", rc)
-        demod_survivors_cuda.launches += 1
+        kernels.count_launch(demod_survivors_cuda)
     return sb, nbad
 
 

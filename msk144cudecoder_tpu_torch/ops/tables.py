@@ -9,6 +9,7 @@ tables.py), copied because that package's ops/__init__ imports jax:
   W   (F, N)  complex64   exp(-2j pi f t / fs)                (demod mix-down)
 
 Phases are reduced mod 1 in float64 on the host before complex64 conversion.
+`padded_freqs` extends a grid for frequency sharding.
 `to_torch` carries these numpy tables into the port unchanged; the layout
 helpers below derive the kernel-friendly forms (E as (F, N/dec), LDPC edges
 as flat int32 index tables) from them. `demod_to_torch` and `ldpc_to_torch`
@@ -57,6 +58,19 @@ def build_freq_tables(freqs: np.ndarray) -> FreqTables:
 @functools.lru_cache(maxsize=8)
 def cached_freq_tables(freqs_key: tuple) -> FreqTables:
     return build_freq_tables(np.asarray(freqs_key))
+
+
+def padded_freqs(freqs: np.ndarray, multiple: int) -> np.ndarray:
+    """Extend the frequency grid upward so its length divides by `multiple`
+    (the frequency-sharding pad). The extra channels are real frequencies
+    past the right boundary; a channel mask keeps them out of the results."""
+    n = len(freqs)
+    rem = (-n) % multiple
+    if rem == 0:
+        return np.asarray(freqs, dtype=np.float64)
+    step = freqs[1] - freqs[0] if n > 1 else 1.0
+    ext = freqs[-1] + step * np.arange(1, rem + 1)
+    return np.concatenate([freqs, ext]).astype(np.float64)
 
 
 class TorchFreqTables(NamedTuple):

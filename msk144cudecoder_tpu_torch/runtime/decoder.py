@@ -6,11 +6,18 @@ raw windows, then on the host unpack each decoded 77-bit payload to text
 through the ResultFilter. `submit()` enqueues the device work (PyTorch's
 CUDA calls return before the device finishes) and `collect()` copies the
 oldest result to the host and post-processes it.
+
+`decode_to_host` may be called from several threads at once (the CLI's
+throughput mode): on a card each call runs on its thread's own CUDA stream,
+from a pinned host copy of the batch to pinned host copies of the results,
+and returns after that stream's synchronize. Post-processing keeps stream
+state (SNR, dedup) and runs on one thread, in stream order.
 """
 
 from __future__ import annotations
 
 import sys
+import threading
 from collections import deque
 from typing import Dict, List, Optional, Tuple
 
@@ -31,26 +38,41 @@ DECODE_CACHE_MAX = 4096
 
 
 class StreamDecoder:
-    def __init__(self, cfg: DecoderConfig, device="cpu"):
+    def __init__(self, cfg: DecoderConfig, device="cpu",
+                 survivor_capacity: Optional[int] = None,
+                 freqs: Optional[np.ndarray] = None):
+        """survivor_capacity: LDPC rows decoded per window, the bound the
+        overflow warning cites: cfg.max_survivors on one device, K * n_freq
+        on a mesh (each frequency shard decodes its own top K). freqs: the
+        grid that candidate indices refer to, when it is not cfg.freqs (a
+        mesh pads the grid; real channels keep their indices). The device
+        pipeline is built at the first device call, so a decoder that only
+        post-processes (the parallel runner's) never builds one."""
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda":
             # the port computes in float32: no TF32 in any cuBLAS/cuDNN call
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        self.pipeline = pipeline.DecodePipeline(cfg).to(self.device)
-        # LDPC rows decoded per window: the bound the overflow warning cites
-        # (K on one device; a frequency-sharded run would decode K per shard)
-        self.survivor_capacity = cfg.max_survivors
+        self._pipeline: Optional[pipeline.DecodePipeline] = None
+        self._pipeline_lock = threading.Lock()
+        self._streams = threading.local()  # each worker thread's CUDA stream
+        self.survivor_capacity = (cfg.max_survivors if survivor_capacity is None
+                                  else survivor_capacity)
         # with the xb prefilter on, survivor counts are lower bounds: only the
         # prefiltered candidates are demodulated, and nbadsync exists only
-        # after the demod. With it off (the full demod) they are exact.
-        self._count_is_lower_bound = self.pipeline.pre > 0
+        # after the demod. With it off (the full demod) they are exact. On a
+        # mesh the prefilter resolves per shard, against the local candidate
+        # count over the padded grid.
+        n_shards = max(1, self.survivor_capacity // max(cfg.max_survivors, 1))
+        grid_f = len(cfg.freqs) if freqs is None else len(freqs)
+        local_nc = -(-grid_f // n_shards) * cfg.scan_depth * cfg.candidates_per_pattern
+        self._count_is_lower_bound = pipeline.resolve_prefilter(cfg, local_nc) > 0
         self.snr_tracker = SNRTracker()
         self.result_filter = ResultFilter()
         self.hashes = msg77.CallsignHashTable()
         self._decode_cache: Dict[bytes, Tuple[bool, str]] = {}
-        self._freqs = cfg.freqs
+        self._freqs = cfg.freqs if freqs is None else freqs
         self._pending: deque = deque()  # in-flight WindowDecodeResults (FIFO)
         # survivor-overflow warning aggregation (see _warn_overflow): global
         # and per-shard overflows tracked separately so the rate-limited
@@ -61,6 +83,20 @@ class StreamDecoder:
         self._ovf_window = 0
 
     # -- device side ------------------------------------------------------
+
+    @property
+    def pipeline(self) -> pipeline.DecodePipeline:
+        """The device pipeline, built once, by whichever thread asks first.
+        On a card the buffers are written on the default stream, so the
+        build waits for them before any worker stream reads them."""
+        if self._pipeline is None:
+            with self._pipeline_lock:
+                if self._pipeline is None:
+                    pipe = pipeline.DecodePipeline(self.cfg).to(self.device)
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    self._pipeline = pipe
+        return self._pipeline
 
     def _run(self, raw_batch) -> pipeline.WindowDecodeResult:
         raw = torch.from_numpy(np.ascontiguousarray(raw_batch)).to(self.device)
@@ -101,8 +137,24 @@ class StreamDecoder:
 
     def decode_to_host(self, raw_batch: np.ndarray) -> pipeline.WindowDecodeResult:
         """Device decode of a (B, raw_len) batch and its result fetch, without
-        host post-processing."""
-        return to_host(self._run(np.asarray(raw_batch)))
+        host post-processing. Safe to call from several threads at once: on
+        a card each thread decodes on its own CUDA stream (the kernels
+        launch on the current stream), and the call returns once that
+        stream has finished."""
+        if self.device.type != "cuda":
+            return to_host(self._run(np.asarray(raw_batch)))
+        pipe = self.pipeline
+        stream = getattr(self._streams, "stream", None)
+        if stream is None:
+            stream = self._streams.stream = torch.cuda.Stream(self.device)
+        host_raw = torch.from_numpy(np.ascontiguousarray(raw_batch)).pin_memory()
+        with torch.cuda.stream(stream):
+            res = pipe(host_raw.to(self.device, non_blocking=True))
+            out = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in res]
+            for h, x in zip(out, res):
+                h.copy_(x, non_blocking=True)
+        stream.synchronize()
+        return type(res)(*(h.numpy() for h in out))
 
     def postprocess_batch(self, res: pipeline.WindowDecodeResult,
                           n_valid: int) -> List[List[ResultItem]]:

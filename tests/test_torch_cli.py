@@ -1,20 +1,28 @@
 """The PyTorch port's host runtime and CLI on the CPU: output lines
 identical to the JAX CLI's on the demo capture (the prefilter on, and off:
-the full demod), StreamDecoder's batching and survivor-overflow warning
-("at least" only with the prefilter on), the busy band on the full demod,
-the import guard (the port never imports jax or the JAX package), and no
-hidden fallback from CUDA to the CPU."""
+the full demod), the pipelined throughput mode (--window-batch with
+--pipeline-depth) against the sequential mode and the JAX CLI,
+--profile-dir, StreamDecoder's batching, its thread-safe decode_to_host and
+survivor-overflow warning ("at least" only with the prefilter on), the busy
+band on the full demod, the import guard (the port never imports jax or the
+JAX package), the kernel library's one build under concurrent first calls,
+and no hidden fallback from CUDA to the CPU."""
 
+import json
 import os
 import pathlib
 import re
 import subprocess
 import sys
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
 import torch
 
+from msk144cudecoder_tpu import golden as G
 from msk144cudecoder_tpu_torch import constants as C
 from msk144cudecoder_tpu_torch import stimulus
 from msk144cudecoder_tpu_torch.config import DecoderConfig
@@ -78,6 +86,112 @@ def test_window_batch_mode_same_lines(port_run):
     assert lines(proc.stdout) == lines(port_run.stdout)
 
 
+def staggered_stream(path: pathlib.Path) -> pathlib.Path:
+    """tests/test_runtime.py's staggered stream: two pings overlapping in
+    time, three windows (one batch of 2 and a zero-padded tail of 1)."""
+    rng = np.random.default_rng(77)
+    n = 12 * C.FRAME_LEN
+    t = np.arange(n)
+    sig = np.zeros(n, dtype=np.complex128)
+    for text, f0, snr, s in [("CQ K1ABC FN42", 1470.0, 7.0, 0),
+                             ("K1ABC W9XYZ EN37", 1530.0, 5.0, 4)]:
+        bb = np.tile(G.modulate_frame(G.frame_bits_from_message(text)), 5)
+        amp = np.sqrt(2.0 * 10 ** (snr / 10.0))
+        lo, hi = s * C.FRAME_LEN, (s + 5) * C.FRAME_LEN
+        sig[lo:hi] += amp * bb * np.exp(2j * np.pi * f0 * t[lo:hi] / C.SAMPLE_RATE)
+    noise = np.sqrt(0.5 * (C.SAMPLE_RATE / 2) / 2500.0) * np.sqrt(2.0)
+    sig += noise * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    path.write_bytes(np.clip(np.round(sig.real * 1000.0), -32768, 32767)
+                     .astype(np.int16).tobytes())
+    return path
+
+
+def test_throughput_mode_matches_sequential_and_jax(tmp_path):
+    """--window-batch 2 --pipeline-depth 2 prints the sequential mode's lines
+    and the JAX CLI's with the same flags (both with the prefilter at 512
+    rows, the port's default path), in stream order through the padded
+    tail, and the steady-state Throughput line."""
+    stream = staggered_stream(tmp_path / "staggered.raw")
+    flags = ["--search-width", "200", "--scan-depth", "3", "--survivor-prefilter=512"]
+    batch = ["--window-batch", "2", "--pipeline-depth", "2"]
+    seq = run("msk144cudecoder_tpu_torch", "--device=cpu", *flags, stdin_path=stream)
+    bat = run("msk144cudecoder_tpu_torch", "--device=cpu", *flags, *batch, stdin_path=stream)
+    ref = run("msk144cudecoder_tpu", "--platform=cpu", *flags, *batch, stdin_path=stream)
+    for proc in (seq, bat, ref):
+        assert proc.returncode == 0, proc.stderr[-3000:]
+    assert lines(bat.stdout) == lines(seq.stdout) == lines(ref.stdout)
+    assert "msg='CQ K1ABC FN42'" in bat.stdout and "msg='K1ABC W9XYZ EN37'" in bat.stdout
+    assert bat.stdout.strip().endswith("Done")
+    assert re.search(r"Throughput: 1 windows in [0-9.]+ s = [0-9.]+ ms/window "
+                     r"\([0-9.,]+x real time, steady-state after first batch\)", bat.stderr)
+
+
+def test_profile_dir_writes_trace(tmp_path):
+    prof = tmp_path / "prof"
+    proc = run("msk144cudecoder_tpu_torch", "--device=cpu", *SMALL, "--window-batch=8",
+               "--pipeline-depth=2", f"--profile-dir={prof}")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert f"Profiler trace written to {prof}" in proc.stderr
+    trace = json.loads((prof / "trace.json").read_text())
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert any(n.startswith("aten::") for n in names)  # the worker threads' ops
+
+
+def test_decode_to_host_from_threads(busy_windows):
+    """Four threads decoding different batches at once give each batch's
+    sequential result, leaf for leaf."""
+    cfg = DecoderConfig(search_width=64.0, scan_depth=6, nbadsync_threshold=3,
+                        max_survivors=128, center_frequency=1450.0)
+    dec = StreamDecoder(cfg)
+    batches = [busy_windows[i:i + 2] for i in range(4)]
+    want = [dec.decode_to_host(b) for b in batches]
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        got = list(pool.map(dec.decode_to_host, batches))
+    for w, g in zip(want, got):
+        for f in w._fields:
+            np.testing.assert_array_equal(getattr(g, f), getattr(w, f), err_msg=f)
+
+
+def test_kernel_library_builds_once_under_threads(monkeypatch, tmp_path):
+    """Four threads that make the first kernel call together build the
+    library once and share it."""
+    builds = []
+
+    def slow_build():
+        builds.append(threading.get_ident())
+        time.sleep(0.2)
+        return tmp_path / "libfake.so"
+
+    class FakeLib:
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            setattr(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(kernels, "_lib", None)
+    monkeypatch.setattr(kernels, "build", slow_build)
+    monkeypatch.setattr(kernels.ctypes, "CDLL", lambda path: FakeLib())
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        libs = list(pool.map(lambda _: kernels.library(), range(4)))
+    assert len(builds) == 1
+    assert all(lib is libs[0] for lib in libs)
+
+
+def test_launch_counts_survive_threads(monkeypatch):
+    from msk144cudecoder_tpu_torch.ops import scan
+
+    monkeypatch.setattr(scan.scan_cuda, "launches", 0)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(max_workers=16) as pool:
+            list(pool.map(lambda _: [kernels.count_launch(scan.scan_cuda) for _ in range(500)],
+                          range(16)))
+    finally:
+        sys.setswitchinterval(interval)
+    assert kernels.launch_counts()["scan"] == 16 * 500
+
+
 def test_no_hidden_fallback_without_cuda(tmp_path):
     """The default device is cuda: without one the CLI stops with a clear
     message instead of decoding on the CPU."""
@@ -103,7 +217,8 @@ def test_import_guard():
     code = ("import sys\n"
             "import msk144cudecoder_tpu_torch, msk144cudecoder_tpu_torch.cli\n"
             "import msk144cudecoder_tpu_torch.ops.pipeline, msk144cudecoder_tpu_torch.runtime\n"
-            "import msk144cudecoder_tpu_torch.stimulus\n"
+            "import msk144cudecoder_tpu_torch.stimulus, msk144cudecoder_tpu_torch.runtime.native\n"
+            "import msk144cudecoder_tpu_torch.parallel, msk144cudecoder_tpu_torch.parallel.cli\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'msk144cudecoder_tpu' or m.startswith('msk144cudecoder_tpu.')]\n"
             "print(bad)\n")

@@ -1,20 +1,26 @@
 """The PyTorch port's CUDA kernels against their plain torch versions on the
-card. Marked `gpu`: each test skips without a CUDA device (the CPU suite
-checks the plain versions against the JAX package instead). On a machine
-with a card and nvcc, and without jax (tests/conftest.py imports it):
+card, decode_to_host from several threads on their own CUDA streams, and
+the frequency-sharded MeshDecoder on one card against its CPU run. Marked
+`gpu`: each test skips without a CUDA device (the CPU suite checks the
+plain versions against the JAX package instead). On a machine with a card
+and nvcc, and without jax (tests/conftest.py imports it):
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 The tolerances are those of chip_smoke.py."""
 
 import pathlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
 import torch
 
+from msk144cudecoder_tpu_torch import constants as C
 from msk144cudecoder_tpu_torch import stimulus
 from msk144cudecoder_tpu_torch.config import DecoderConfig
 from msk144cudecoder_tpu_torch.ops import demod, kernels, ldpc, pipeline, scan, survivor
-from msk144cudecoder_tpu_torch.protocol import crc, ldpc_tables
+from msk144cudecoder_tpu_torch.parallel import MeshDecoder, make_mesh
+from msk144cudecoder_tpu_torch.protocol import crc, ldpc_tables, msg77
+from msk144cudecoder_tpu_torch.runtime import StreamDecoder
 
 pytestmark = pytest.mark.gpu
 DEMO = pathlib.Path(__file__).resolve().parents[1] / "demo" / "capture.raw"
@@ -103,3 +109,59 @@ def test_bp_kernel_matches_plain(setup):
     for f in r_k._fields:
         assert torch.equal(getattr(r_k, f), getattr(r_p, f)), f
     assert r_k.found.any()
+
+
+def test_decode_to_host_threads_equal_sequential(cuda):
+    """Four threads, each on its own CUDA stream, decode different batches of
+    8 windows at once: every leaf equals the sequential call's."""
+    demo = stimulus.stream_windows(np.fromfile(DEMO, dtype=np.int16))
+    batches = [demo[i:i + 8] for i in (0, 6, 12, 18)]
+    dec = StreamDecoder(DecoderConfig(), cuda)
+    want = [dec.decode_to_host(b) for b in batches]
+    kernels.reset_launch_counts()
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        for _ in range(3):
+            got = list(pool.map(dec.decode_to_host, batches))
+            for w, g in zip(want, got):
+                for f in w._fields:
+                    np.testing.assert_array_equal(getattr(g, f), getattr(w, f), err_msg=f)
+    counts = kernels.launch_counts()
+    assert counts["scan"] == counts["survivor"] == counts["bp"] == 12
+
+
+def mesh_summary(md, res):
+    """Per window: message -> the lowest (num_avg, nbadsync, f0) of its
+    found rows (the row the CLI prints)."""
+    out = []
+    hashes = msg77.CallsignHashTable()
+    for b in range(res.found.shape[0]):
+        best = {}
+        for k in np.nonzero(res.found[b])[0]:
+            ok, text = msg77.unpack77(pipeline.unpack_message_bits(res.message_bits[b][k]),
+                                      hashes)
+            if ok:
+                fi, pi, _ = md.unpack_candidate_index(int(res.cand_index[b][k]))
+                key = (int(C.PATTERN_NUM_AVG[pi]), int(res.nbadsync[b][k]), float(md.freqs[fi]))
+                best[text] = min(best.get(text, key), key)
+        out.append(best)
+    return out
+
+
+@pytest.mark.parametrize("prefilter", [None, 0])
+@pytest.mark.parametrize("n_time,n_freq", [(1, 4), (2, 2)])
+def test_mesh_decoder_on_one_card_equals_cpu(cuda, n_time, n_freq, prefilter):
+    cfg = DecoderConfig(survivor_prefilter=prefilter)
+    raw = stimulus.stream_windows(np.fromfile(DEMO, dtype=np.int16))[8:12]
+    n = n_time * n_freq
+    md_gpu = MeshDecoder(cfg, make_mesh(n_time, n_freq, [cuda] * n))
+    md_cpu = MeshDecoder(cfg, make_mesh(n_time, n_freq, ["cpu"] * n))
+    kernels.reset_launch_counts()
+    got = md_gpu.decode(raw)
+    counts = kernels.launch_counts()
+    want = md_cpu.decode(raw)
+    assert mesh_summary(md_gpu, got) == mesh_summary(md_cpu, want)
+    assert any(mesh_summary(md_gpu, got))
+    # the all-frames pattern's scan lags tie by construction (ROADMAP C)
+    assert (np.abs(got.num_survivors - want.num_survivors) <= 0.01 * want.num_survivors).all()
+    demod_kernel = "survivor" if prefilter is None else "demod"
+    assert counts["scan"] == counts[demod_kernel] == counts["bp"] == n

@@ -9,8 +9,11 @@ overlapping in time: the port's decode_raw against the JAX decode_raw on its
 kernel branch (Pallas kernels in interpret mode, as tests/test_pallas.py runs
 it) with the prefilter on, and on its jnp branch with the prefilter off (the
 full demod): the decode sets, per message (num_avg, nbadsync, f0), and the
-count of found rows are identical."""
+count of found rows are identical. A channel mask (the frequency-sharding
+pad) against the JAX decode_windows with the same mask, at both prefilter
+settings."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -173,11 +176,6 @@ def test_finish_window_identical():
                                   np.asarray(bp.codeword)[sel, :77])
 
 
-def test_unimplemented_paths_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.DecodePipeline(DecoderConfig(), chan_valid=np.ones(101, bool))
-
-
 def stimuli() -> np.ndarray:
     a = G.synthesize_audio_int16([("CQ K1ABC FN42", 1500.0)], 6, snr_db=8.0,
                                  rng=np.random.default_rng(3))
@@ -242,3 +240,34 @@ def test_decode_raw_full_demod_matches_jax():
     n_ours, n_ref = ours.num_survivors.numpy(), np.asarray(ref.num_survivors)
     assert (np.abs(n_ours - n_ref) <= 0.01 * n_ref).all(), (n_ours, n_ref)
     assert (n_ours > cfg.max_survivors).all()  # the full grid overflows K here
+
+
+@pytest.mark.parametrize("prefilter", [0, 512])
+def test_chan_valid_matches_jax(prefilter):
+    """DecodePipeline(cfg, freqs, chan_valid) against the JAX decode_windows
+    with the same grid and mask (its jnp branch, use_pallas=False), with
+    the top 3 channels masked and a ping planted in them: the found count
+    and per-message summary are identical, and no found row comes from a
+    masked channel."""
+    top = ("CQ N0XYZ DM79", 1530.0)  # in the masked channels (1528-1532 Hz)
+    ping = G.synthesize_audio_int16([top], 6, snr_db=8.0, rng=np.random.default_rng(12))
+    raw = np.concatenate([stimuli(), ping[None]])
+    cfg = DecoderConfig(survivor_prefilter=prefilter, **E2E)
+    jcfg = JaxConfig(survivor_prefilter=prefilter, use_pallas=False, **E2E)
+    freqs = cfg.freqs
+    mask = np.arange(len(freqs)) < len(freqs) - 3
+    pipe = pipeline.DecodePipeline(cfg, freqs=freqs, chan_valid=mask)
+    assert (pipe.pre > 0) == (prefilter > 0)
+    ours = pipe(torch.from_numpy(raw))
+    ref = jax.jit(lambda r: jpipeline.decode_windows(
+        jpipeline.preprocess(r, jcfg), tuple(float(f) for f in freqs), jcfg,
+        chan_valid=jnp.asarray(mask)))(jnp.asarray(raw))
+    unmasked = pipeline.DecodePipeline(cfg)(torch.from_numpy(raw[-1:]))
+    assert summary(unmasked, cfg, 0)[0][top[0]][2] >= freqs[-3]  # best row in a masked channel
+    for b in range(len(raw)):
+        assert summary(ours, cfg, b) == summary(ref, cfg, b), b
+    per_f = cfg.scan_depth * cfg.candidates_per_pattern
+    found_f = ours.cand_index.numpy()[ours.found.numpy()] // per_f
+    assert mask[found_f].all()
+    np.testing.assert_array_equal(ours.nbadsync.numpy()[~mask[ours.cand_index.numpy() // per_f]],
+                                  17)
