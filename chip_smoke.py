@@ -12,11 +12,18 @@ caught, and any failure exits non-zero.
   1. build: compiles csrc/*.cu into the git-ignored _build/ (keyed on a hash
      of the sources)
   2. each kernel against its plain torch version on the card, at main-path
-     shapes: B1 scan (F=101 depth 4, F=501 depth 6, both dec 4; and dec 1),
-     B2 survivor demod (16 windows x 512 rows, wrap positions and gap
-     patterns), B3 BP (4096 rows of planted codewords and noise), B4 full
-     demod (F=101 depth 4 on 8 windows, F=501 depth 6 on 2, depth 8 with 5
-     candidates per pattern on 2; lags planted at the window's wrap points)
+     shapes, with its time by CUDA events (queued: the calls back to back
+     behind a device-side sleep; and not queued), the least time
+     the card could take for the same work and what bounds it: B1 scan at
+     the main path's 64 windows (F=101 depth 4 and F=501 depth 6, dec 4),
+     at one window, at 8 windows of each, and at dec 1, with the yardstick
+     of one complex64 matmul of the correlation stage alone; B2 survivor
+     demod (16 windows x 512 rows, wrap positions and gap patterns); B3 BP
+     on the main path's own rows (the selected survivors of 64 demo
+     windows, 16,384 rows) and on 4096 rows of planted codewords and noise;
+     B4 full demod (F=101 depth 4 on 8 windows, F=501 depth 6 on 2, depth 8
+     with 5 candidates per pattern on 2; lags planted at the window's wrap
+     points)
   3. main path: the CLI on demo/capture.raw on the card decodes the three
      planted messages, with lines identical (but for date=) to --device=cpu;
      an in-process StreamDecoder pass over the demo launches the scan,
@@ -33,7 +40,8 @@ caught, and any failure exits non-zero.
      decodes
   6. timing with CUDA events: ms/window and x real time at the default and
      deep configs at B=1 and B=64 and of the full-demod path at the deep
-     config, the per-stage split, each kernel beside its plain version
+     config, the per-stage split, and a torch.profiler trace of a few passes
+     (device time per pass, busy share, the largest device entries)
   7. the throughput CLI on the card: on the demo, --window-batch=8
      --pipeline-depth=4 prints the lines of --window-batch=1 on the card and
      of --device=cpu, with the prefilter on and off; on a long stream (the
@@ -55,8 +63,9 @@ caught, and any failure exits non-zero.
      on cuda:0: each prints only its own time row's message, rank 0 ends
      with Done
 
-The line before the last is the JSON kernel table; the last line is the JSON
-device record.
+The line before the last is the JSON kernel table (each kernel at the main
+path's shapes, its launches in the phase-3 pass and per pipeline pass); the
+last line is the JSON device record.
 """
 
 from __future__ import annotations
@@ -92,8 +101,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_time(fn, reps: int, warmup: int = 2) -> float:
-    """Mean ms per call of fn() on the current stream, by CUDA events."""
+def cuda_time(fn, reps: int, warmup: int = 2, queued: bool = False) -> float:
+    """Mean ms per call of fn() on the current stream, by CUDA events.
+    queued: a device-side sleep ahead of the start event keeps the card busy
+    while the host enqueues the calls, so that the events time the kernels
+    back to back and not the host's launch rate (for a kernel shorter than
+    its launch)."""
     import torch
 
     for _ in range(warmup):
@@ -101,12 +114,67 @@ def cuda_time(fn, reps: int, warmup: int = 2) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(int(2e6 + 2e5 * reps))  # cycles: about 1 ms + 0.1 ms per call
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_times(fn, reps: int) -> tuple[float, float]:
+    """A kernel's ms per call queued (the kernel line's `ms`) and not queued
+    (each call's launch in the time, the yardstick of earlier readings)."""
+    return cuda_time(fn, reps, queued=True), cuda_time(fn, reps)
+
+
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): FP32
+# outside the tensor cores and HBM3; the special-function units give 16
+# results per clock per SM (CUDA C++ Programming Guide, compute capability
+# 9.0) on 132 SMs at the 1.98 GHz boost clock.
+PEAK_FP32 = 67e12  # FLOP/s
+PEAK_HBM = 3.35e12  # bytes/s
+PEAK_SFU = 16 * 132 * 1.98e9  # special-function results/s
+# the matched-filter tail of one row (B2, B4): two 42-tap sync sums, 144
+# 12-tap softbits, their mean and variance
+TAIL_FLOPS = 2 * 42 * 8 + 144 * 12 * 4 + 4 * 144
+
+
+def bound(flops: float = 0.0, nbytes: float = 0.0, sfu: float = 0.0) -> tuple[float, str]:
+    """The least time the card could take (ms) and what bounds it: the
+    larger of the operations over their peak rate and the bytes over HBM's."""
+    ops_ms = max(flops / PEAK_FP32, sfu / PEAK_SFU) * 1e3
+    bytes_ms = nbytes / PEAK_HBM * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def scan_bound(n_win: int, F: int, depth: int, k: int, dec: int) -> tuple[float, str]:
+    """Kernel B1: per (window, f, coarse lag) 42 complex multiply-adds, the
+    E factor, the T_m sums, the pattern sums and a magnitude per pattern;
+    the windows, B, E, chi in and (pos, xb) out once."""
+    n2 = 5184 // dec
+    per_lag = 42 * 8 + 6 + 2 * min(depth, 6) + 2 * depth + 4 * depth
+    nbytes = 8 * (n_win * 5184 + F * (42 + n2 + 1) + n_win * F * depth * k)
+    return bound(flops=n_win * F * n2 * per_lag, nbytes=nbytes)
+
+
+def bp_bound(llr, valid, res, max_iters: int = 10) -> tuple[int, float, str]:
+    """Kernel B3 on these rows: the message updates they need (a row found
+    at iteration i ran i updates, a valid row never found max_iters, an
+    invalid row none), each 384 edges x 3 special functions and about 12
+    FLOPs; the LLRs and flags in and the outputs out once."""
+    import torch
+
+    updates = int(torch.where(res.found, res.iterations,
+                              torch.where(valid, max_iters, 0)).sum().item())
+    nbytes = tensor_bytes(llr, valid, *res)
+    return (updates, *bound(flops=updates * 384 * 12, sfu=updates * 384 * 3, nbytes=nbytes))
 
 
 def strip_date(lines: str) -> list[str]:
@@ -182,19 +250,25 @@ def main() -> int:
     kernel_rows = []
 
     # ---- phase 2: each kernel against its plain version ---------------------
-    def windows_on_card(cfg, n):
-        raws = [demo_windows[i % len(demo_windows)] for i in range(n - n // 4)]
-        raws += [rng.normal(0, 1000, C.WINDOW_LEN).astype(np.int16) for _ in range(n // 4)]
+    def windows_on_card(cfg, n, noise=True):
+        """A pipeline for cfg and n analytic windows: the demo's in turn, the
+        last quarter noise unless noise is False."""
+        n_noise = n // 4 if noise else 0
+        raws = [demo_windows[i % len(demo_windows)] for i in range(n - n_noise)]
+        raws += [rng.normal(0, 1000, C.WINDOW_LEN).astype(np.int16) for _ in range(n_noise)]
         pipe = pipeline.DecodePipeline(cfg).to(dev)
         return pipe, pipe.preprocess(torch.from_numpy(np.stack(raws)).to(dev))
 
-    scan_cases = [(DecoderConfig(), 8), (DecoderConfig(search_width=500.0, search_step=1.0,
-                                                      scan_depth=6, nbadsync_threshold=3), 8),
-                  (DecoderConfig(scan_decimation=1), 4)]
+    deep = DecoderConfig(search_width=500.0, search_step=1.0, scan_depth=6,
+                         nbadsync_threshold=3)
+    # the main path's batch of 64 windows (default and deep), one window, and
+    # the earlier small batches
+    scan_cases = [(DecoderConfig(), 64), (deep, 64), (DecoderConfig(), 1),
+                  (DecoderConfig(), 8), (deep, 8), (DecoderConfig(scan_decimation=1), 4)]
     for cfg, nw in scan_cases:
         pipe, c = windows_on_card(cfg, nw)
-        dec, depth = cfg.scan_decimation, cfg.scan_depth
-        args = (c, pipe.B, pipe.E_dec, pipe.chi, depth, cfg.candidates_per_pattern, dec)
+        dec, depth, k = cfg.scan_decimation, cfg.scan_depth, cfg.candidates_per_pattern
+        args = (c, pipe.B, pipe.E_dec, pipe.chi, depth, k, dec)
         pos_k, xb_k = scan.scan_cuda(*args)
         pos_p, xb_p = scan.scan_plain(*args)
         torch.cuda.synchronize()
@@ -209,17 +283,34 @@ def main() -> int:
         untied = [p for p in range(depth) if p != 5]
         agree = 1.0 - float(mism[:, :, untied].mean())
         assert agree >= 0.99 and bool(near[mism].all()), (agree, int(mism.sum()))
-        ms = cuda_time(lambda: scan.scan_cuda(*args), reps=20)
-        plain_ms = cuda_time(lambda: scan.scan_plain(*args), reps=5)
+        ms, ms_unq = kernel_times(lambda: scan.scan_cuda(*args), reps=20)
+        plain_ms = cuda_time(lambda: scan.scan_plain(*args), reps=3)
+        bound_ms, bound_by = scan_bound(nw, cfg.num_freqs, depth, k, dec)
         name = f"scan F={cfg.num_freqs} depth={depth} dec={dec} B={nw}"
-        log(f"[B1] {name}: pos agree {agree:.4f} (patterns but 5), near ties {int(mism.sum())}, max |dxb| {np.abs(xk - xp).max():.3g}, "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms  ({card})")
-        if cfg == DecoderConfig():
+        log(f"[B1] {name}: pos agree {agree:.4f} (patterns but 5), near ties {int(mism.sum())}, "
+            f"max |dxb| {np.abs(xk - xp).max():.3g}, kernel {ms:.4f} ms ({ms_unq:.4f} not "
+            f"queued), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), share "
+            f"{bound_ms / ms:.3f}  ({card})")
+        if cfg == DecoderConfig() and nw == 64:
             kernel_rows.append(dict(name="scan", route="cuda",
                                     source="msk144cudecoder_tpu_torch/csrc/scan.cu",
                                     replaces="msk144cudecoder_tpu/ops/pallas_scan.py:139",
                                     max_abs_err=float(np.abs(xk - xp).max()),
-                                    ms=ms, plain_ms=plain_ms))
+                                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                    bound_by=bound_by, library_ms=None, shape=name))
+            # a yardstick, not the same function: the correlation stage
+            # alone as one complex64 matmul of the (64 * 1296, 42) Hankel
+            # matrix by B (42, F), TF32 off
+            lags = torch.arange(0, C.WINDOW_LEN, dec, device=dev)
+            taps = torch.arange(C.SYNC_CORR_LEN, device=dev)
+            ext = torch.cat([c, c[:, : C.SYNC_CORR_LEN - 1]], dim=1)
+            hank = ext[:, lags[:, None] + taps[None, :]].reshape(-1, C.SYNC_CORR_LEN)
+            hank = hank.conj().resolve_conj().contiguous()
+            mm_ms = cuda_time(lambda: torch.matmul(hank, pipe.B), reps=20)
+            log(f"[B1] yardstick: torch.matmul {tuple(hank.shape)} x {tuple(pipe.B.shape)} "
+                f"complex64 (correlation only) {mm_ms:.4f} ms  ({card})")
+        del pos_p, xb_p
+    torch.cuda.empty_cache()
 
     # B2: the main path's survivor rows of 16 windows, with wrap positions
     # and gap patterns planted in every window
@@ -240,52 +331,71 @@ def main() -> int:
     rel = ((sb_k - sb_p).abs() / (sb_p.abs() + 1e-3)).max().item()
     assert rel < 5e-3, rel
     assert torch.isfinite(sb_k).all()
-    ms = cuda_time(lambda: survivor.demod_survivors_cuda(*sargs), reps=20)
+    ms, ms_unq = kernel_times(lambda: survivor.demod_survivors_cuda(*sargs), reps=20)
     plain_ms = cuda_time(lambda: survivor.demod_survivors_plain(*sargs), reps=5)
-    log(f"[B2] survivor B=16 S={pos_f.shape[1]}: nbadsync equal, max rel {rel:.3g}, "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms  ({card})")
+    n_frames = pipe.masks.sum(dim=1)[p_idx.long()]
+    bound_ms, bound_by = bound(
+        flops=float(C.FRAME_LEN * (8 * n_frames + 6).sum().item()) + TAIL_FLOPS * p_idx.numel(),
+        nbytes=tensor_bytes(*sargs[:6], *dt, sb_k, nb_k))
+    name = f"survivor B=16 S={pos_f.shape[1]}"
+    log(f"[B2] {name}: nbadsync equal, max rel {rel:.3g}, kernel {ms:.4f} ms ({ms_unq:.4f} "
+        f"not queued), plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f}  "
+        f"({card})")
     kernel_rows.append(dict(name="survivor", route="cuda",
                             source="msk144cudecoder_tpu_torch/csrc/survivor.cu",
                             replaces="msk144cudecoder_tpu/ops/pallas_survivor.py:229",
                             max_abs_err=float((sb_k - sb_p).abs().max().item()),
-                            ms=ms, plain_ms=plain_ms))
+                            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=None, shape=name))
 
-    # B3: 4096 rows, half planted codewords + noise, a quarter pure noise,
-    # a quarter planted but marked invalid
+    # B3: the main path's own rows, the selected survivors of 64 demo
+    # windows (16,384 rows); then 4096 rows, half planted codewords + noise,
+    # a quarter pure noise, a quarter planted but marked invalid
+    pipe, c = windows_on_card(DecoderConfig(), 64, noise=False)
+    front = pipe.prefilter(*pipe.scan(c))
+    prep = pipe.select(*pipe.demod(c, front), front)
+    main_rows = (prep.llr.reshape(-1, C.NUM_DATA_BITS).contiguous(),
+                 prep.valid.reshape(-1).contiguous())
     rows = []
     for _ in range(3072):
         msg = rng.integers(0, 2, 77)
         cw = ldpc_tables.encode(np.concatenate([msg, (crc_mod.CRC_MATRIX @ msg) % 2]))
         rows.append((2.0 * cw - 1.0) * rng.uniform(1.5, 4.0) + rng.normal(0, 1.0, 128))
     rows += [rng.normal(0, 2.0, 128) for _ in range(1024)]
-    llr = torch.from_numpy(np.stack(rows).astype(np.float32)).to(dev)
-    valid = torch.from_numpy(np.arange(4096) % 4 != 3).to(dev)
+    planted = (torch.from_numpy(np.stack(rows).astype(np.float32)).to(dev),
+               torch.from_numpy(np.arange(4096) % 4 != 3).to(dev))
     lt = pipe.ldpc_tables
-    r_k = ldpc.bp_decode_cuda(llr, valid, lt)
-    r_p = ldpc.bp_decode_plain(llr, valid, lt)
-    torch.cuda.synchronize()
-    for f in r_k._fields:
-        assert torch.equal(getattr(r_k, f), getattr(r_p, f)), f
-    n_found = int(r_k.found.sum())
-    assert n_found > 1000, n_found
-    ms = cuda_time(lambda: ldpc.bp_decode_cuda(llr, valid, lt), reps=20)
-    plain_ms = cuda_time(lambda: ldpc.bp_decode_plain(llr, valid, lt), reps=5)
-    log(f"[B3] bp R=4096: found/codeword/iterations/hard_errors identical "
-        f"({n_found} found), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms  ({card})")
-    kernel_rows.append(dict(name="bp", route="cuda",
-                            source="msk144cudecoder_tpu_torch/csrc/bp.cu",
-                            replaces="msk144cudecoder_tpu/ops/pallas_ldpc.py:115",
-                            max_abs_err=float((r_k.codeword.int() - r_p.codeword.int())
-                                              .abs().max().item()),
-                            ms=ms, plain_ms=plain_ms))
+    for tag, (llr, valid) in (("main-path rows", main_rows), ("planted rows", planted)):
+        r_k = ldpc.bp_decode_cuda(llr, valid, lt)
+        r_p = ldpc.bp_decode_plain(llr, valid, lt)
+        torch.cuda.synchronize()
+        for f in r_k._fields:
+            assert torch.equal(getattr(r_k, f), getattr(r_p, f)), (tag, f)
+        n_found = int(r_k.found.sum())
+        assert n_found > (1000 if tag == "planted rows" else 0), (tag, n_found)
+        ms, ms_unq = kernel_times(lambda: ldpc.bp_decode_cuda(llr, valid, lt), reps=20)
+        plain_ms = cuda_time(lambda: ldpc.bp_decode_plain(llr, valid, lt), reps=5)
+        updates, bound_ms, bound_by = bp_bound(llr, valid, r_k)
+        name = f"bp R={llr.shape[0]} ({tag})"
+        log(f"[B3] {name}: found/codeword/iterations/hard_errors identical ({n_found} found, "
+            f"{int(valid.sum())} valid, {updates} row-iterations of updates), kernel "
+            f"{ms:.4f} ms ({ms_unq:.4f} not queued), plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f}  ({card})")
+        if tag == "main-path rows":
+            kernel_rows.append(dict(name="bp", route="cuda",
+                                    source="msk144cudecoder_tpu_torch/csrc/bp.cu",
+                                    replaces="msk144cudecoder_tpu/ops/pallas_ldpc.py:115",
+                                    max_abs_err=float((r_k.codeword.int() - r_p.codeword.int())
+                                                      .abs().max().item()),
+                                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                    bound_by=bound_by, library_ms=None, shape=name))
 
     # B4: the full-demod path's grid of every scan candidate, with lags
     # planted at the window's wrap points in every window. Rule: softbits
     # within 5e-3 relative (as B2); nbadsync equal on >= 99.99 % of the rows
     # (noise rows' sync softbits can sit at +-0), and every unequal row has
     # a plain sync softbit within 1e-3 of 0 before scaling
-    deep = DecoderConfig(search_width=500.0, search_step=1.0, scan_depth=6,
-                         nbadsync_threshold=3)
     wraps = torch.tensor([0, 863, 864, 4320, 4321, 5183, 2591, 5000], dtype=torch.int32)
     for cfg, nw in ((DecoderConfig(), 8), (deep, 2),
                     (DecoderConfig(scan_depth=8, candidates_per_pattern=5), 2)):
@@ -302,19 +412,28 @@ def main() -> int:
         share, n_mism, near = demod.nbadsync_agreement(*dargs, nb_k, nb_p)
         assert rel < 5e-3, rel
         assert share >= 0.9999 and near, (share, n_mism, near)
-        ms = cuda_time(lambda: demod.demod_candidates_cuda(*dargs), reps=20)
+        ms, ms_unq = kernel_times(lambda: demod.demod_candidates_cuda(*dargs), reps=20)
         plain_ms = cuda_time(lambda: demod.demod_candidates_plain(*dargs), reps=3)
+        # per (window, f): the mix, then each pattern's frame sums; per row
+        # the matched-filter tail
+        n_frames = int(pipe.masks[: cfg.scan_depth].sum().item())
+        bound_ms, bound_by = bound(
+            flops=nw * cfg.num_freqs * C.WINDOW_LEN * (6 + 2 * n_frames)
+            + TAIL_FLOPS * nb_k.numel(),
+            nbytes=tensor_bytes(*dargs[:3], *pipe.demod_tables, sb_k, nb_k))
         name = (f"demod F={cfg.num_freqs} depth={cfg.scan_depth} "
                 f"k={cfg.candidates_per_pattern} B={nw} ({nb_k.numel()} rows)")
         log(f"[B4] {name}: max rel {rel:.3g}, nbadsync equal on {share:.6f} of rows "
-            f"({n_mism} unequal, all near 0: {near}), kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms  ({card})")
+            f"({n_mism} unequal, all near 0: {near}), kernel {ms:.4f} ms ({ms_unq:.4f} not "
+            f"queued), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), share "
+            f"{bound_ms / ms:.3f}  ({card})")
         if cfg.num_freqs == 101 and cfg.scan_depth == 4:
             kernel_rows.append(dict(name="demod", route="cuda",
                                     source="msk144cudecoder_tpu_torch/csrc/demod.cu",
                                     replaces="msk144cudecoder_tpu/ops/pallas_demod.py:169",
                                     max_abs_err=float((sb_k - sb_p).abs().max().item()),
-                                    ms=ms, plain_ms=plain_ms))
+                                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                    bound_by=bound_by, library_ms=None, shape=name))
         del sb_p, nb_p, sb_k, nb_k
     torch.cuda.empty_cache()
 
@@ -356,8 +475,9 @@ def main() -> int:
         log(f"[{tag}] StreamDecoder pass over {len(demo_windows)} demo windows: "
             f"launches {counts}")
         path_counts.update({k: counts[k] for k in path_kernels if k not in path_counts})
-    for row in kernel_rows:
+    for row in kernel_rows:  # one pipeline pass per demo window
         row["launches"] = path_counts[row["name"]]
+        row["launches_per_pass"] = row["launches"] / len(demo_windows)
 
     # ---- phase 4: busy band -----------------------------------------------
     bb_cfg = DecoderConfig(search_width=200.0, search_step=2.0, scan_depth=6,
@@ -419,6 +539,10 @@ def main() -> int:
                 f"{HOP_MS * nb / ms:.1f}x real time, {C.HOP_LEN * nb / ms * 1e3:.4g} "
                 f"samples/s; stages (median ms/call) "
                 + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()) + f"  ({card})")
+            wall, busy, n_ops, top = profile_passes(pipe, raw, passes=20 if nb == 1 else 5)
+            log(f"[profile] {name} B={nb}: wall {wall:.4f} ms/pass, device {busy:.4f} ms/pass "
+                f"({n_ops:.0f} device ops/pass), busy share {busy / wall:.4f}; largest: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in top) + f"  ({card})")
     dec1 = StreamDecoder(DecoderConfig(), dev)
     lats = []
     with contextlib.redirect_stderr(io.StringIO()):
@@ -435,9 +559,9 @@ def main() -> int:
     phase7_throughput_cli(paths, cli_lines, demo, demo_windows, card)
     phase8_sharding(demo_windows, bb_cfg, bb_windows, card)
 
-    print(json.dumps({"kernels": [{k: r[k] for k in ("name", "route", "source", "replaces",
-                                                   "launches", "max_abs_err", "ms",
-                                                   "plain_ms")} for r in kernel_rows]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in (
+        "name", "route", "source", "replaces", "launches", "launches_per_pass", "max_abs_err",
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")} for r in kernel_rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(dev),
                                              "count": torch.cuda.device_count()}}))
@@ -697,6 +821,33 @@ def phase8_sharding(demo_windows, bb_cfg, bb_windows, card) -> None:
     mesh_line = [ln for ln in outs[0][1].splitlines() if ln.startswith("Mesh:")]
     log(f"[parallel] two gloo processes on {DEVICE}: rank 0 printed only row 0's message "
         f"and Done, rank 1 only row 1's; {mesh_line[0]}")
+
+
+def profile_passes(pipe, raw, passes: int):
+    """(wall ms per pass by the host clock without the profiler, device ms
+    per pass summed over the CUDA entries of a torch.profiler trace, device
+    ops per pass, the four largest entries as (name, ms per pass))."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        for _ in range(passes):
+            pipe(raw)
+        torch.cuda.synchronize()
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall = (time.perf_counter() - t0) * 1e3 / passes
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    entries = [(e.key, e.device_time_total / 1e3 / passes, e.count / passes)
+               for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    entries.sort(key=lambda e: -e[1])
+    top = [(re.sub(r"\(.*", "", k.replace("(anonymous namespace)::", "")
+                   .replace("void ", ""))[:48], v) for k, v, _ in entries[:4]]
+    return wall, sum(e[1] for e in entries), sum(e[2] for e in entries), top
 
 
 def stage_split(pipe, raw, reps: int) -> dict:

@@ -135,16 +135,16 @@ def print_banner(cfg: DecoderConfig, device, out=None) -> None:
 def resolve_device(name: str):
     """The torch device to decode on. A CUDA device that is not there is an
     error, never a silent switch to the CPU."""
-    import torch
+    from .ops import kernels
 
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    try:
+        return kernels.resolve_device(name)
+    except RuntimeError:
         raise SystemExit(
             f"error: --device={name} but no CUDA device is available "
-            "(pass --device=cpu to run the plain torch path on the CPU)")
-    if device.type not in ("cuda", "cpu"):
-        raise SystemExit(f"error: unsupported --device={name}: use cuda or cpu")
-    return device
+            "(pass --device=cpu to run the plain torch path on the CPU)") from None
+    except ValueError:
+        raise SystemExit(f"error: unsupported --device={name}: use cuda or cpu") from None
 
 
 def main(argv: Optional[List[str]] = None) -> int:

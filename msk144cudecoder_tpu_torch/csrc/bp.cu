@@ -1,34 +1,49 @@
 // Kernel B3: LDPC(128,90) belief propagation with the CRC-13 gate.
 //
 // Replaces msk144cudecoder_tpu/ops/pallas_ldpc.py::_bp_kernel (launched by
-// bp_decode_pallas). Same result as the plain torch version in ops/ldpc.py
+// bp_decode_pallas). Every output (found, codeword, iterations, hard
+// errors) is identical to the plain torch version in ops/ldpc.py
 // (bp_decode_plain): the same order of checks and updates, the same
-// sequential sums, the log-domain leave-one-out and the reference's
-// piecewise-linear platanh.
+// sequential sums, the same tanhf/log2f/exp2f, the log-domain leave-one-out
+// and the reference's piecewise-linear platanh with true divisions.
 //
-// One block of 128 threads per codeword row, thread j owning bit j (the
-// layout of the CUDA original's BP kernel), with the edge tables (NM: the
-// bit of each of the 38 x 11 check slots, -1 for padding; MN: the 3 edges
-// of each bit) and the CRC matrix in shared memory. Each of up to max_iters
-// iterations:
-//   zn = llr + tov[e0] + tov[e1] + tov[e2]; cw = zn > 0
-//   the 38 parity checks (threads 0-37), the CRC of cw[:77] against
-//   cw[77:90] (threads 64-76), hard errors = #(cw != llr > 0); success =
-//   no failed check, hard errors < 18 and `valid`: the row writes its
-//   outputs and the block leaves (the outputs freeze at the first success)
-//   t[e] = tanh(-(zn[bit(e)] - tov[e]) / 2); per check row the sum of
-//   log2(max(|t|, 2^-80)) and the count of negative t; then
+// One block of 128 threads (four warps) per codeword row. Thread t owns
+// bit t (so a __ballot_sync of a warp's hard decisions is one 32-bit word
+// of the codeword), check row t, CRC row t, and the real edges t, t + 128
+// and t + 256 of the 384 (the tables list them in (check, slot) order,
+// padding slots dropped). Each of up to max_iters iterations:
+//   zn = llr + tov[e0] + tov[e1] + tov[e2]   (the bit's edges in slot order)
+//   cw = zn > 0, four words by ballot; each of the 38 parity checks and 13
+//   CRC rows is the parity of __popc(mask & cw); hard errors =
+//   __popc(cw ^ (llr > 0)); success = no failed check and hard errors < 18:
+//   the row writes its outputs and its block leaves (the outputs freeze at
+//   the first success)
+//   t[e] = tanh(-(zn[bit(e)] - tov[e]) / 2) and log2(max(|t|, 2^-80)) per
+//   edge; per check row, one thread sums the log2 terms in slot order and
+//   counts the negative t; then per edge
 //   tov[e] = 2 * platanh(-(sign * exp2(sum - log2|t_e|))), sign from the
 //   parity of the row's other negatives.
+// A row marked invalid can never succeed, so its block writes the zero
+// outputs at once, without iterating or reading the tables.
 //
-// What bounds it on the H100: nothing in device memory (512 B of LLRs in,
-// 140 B out per row); each iteration is a few hundred FLOPs and three
-// block barriers per row, so barrier latency and the tanhf/log2f/exp2f
-// throughput bound it. The design keeps every message in shared memory for
-// all iterations and lets a decoded row's block exit at once, so rows that
-// decode early free their SM. The Pallas kernel's one-hot selection
-// matmuls and bf16 mantissa splits are TPU devices and are gone: an edge
-// is an index.
+// What bounds it on the H100: the three precise special functions per edge
+// and update (tanhf, log2f, exp2f), 1152 per row and iteration; device
+// memory is 512 B of LLRs in and 140 B out per row. The design spends every
+// thread on those (three real edges each: no idle lanes, no padding slots),
+// keeps every message in the block's 5.3 KB of shared memory, replaces the
+// serial parity and CRC loops with ballots and popcounts (five barriers per
+// iteration), and frees a decoded or invalid row's block at once. Each
+// thread reads its 13 words of the code's tables (its bit's edges, its
+// edges' bits and checks, its check's edge range, its parity and CRC masks)
+// once per row through the read-only cache into registers: the 3 KB of
+// tables that every block reads stay in the SM's L1, and the iterations
+// load no table from shared memory. Measured against the alternatives
+// (PERF.md): the tables staged into shared memory per row, or once per
+// block of 2 to 8 rows (each row on its own named barrier), and the tables
+// in __constant__ memory (whose lanes read different words, so the
+// constant cache serialises them) were each slower at one window's 256
+// rows and at 8 windows' 2048; a warp per row (no block barriers, but
+// twelve edges per lane in sequence) was slower at every batch.
 
 #include "common.cuh"
 
@@ -38,12 +53,27 @@ using namespace msk;
 
 constexpr int kBits = 128;
 constexpr int kChecks = 38;
-constexpr int kDegree = 11;
-constexpr int kEdges = kChecks * kDegree;  // 418, 11 slots per check
+constexpr int kDegree = 11;  // the most real edges of a check
+constexpr int kEdges = 384;  // real edges: 128 bits x 3 checks
+constexpr int kWords = kBits / 32;
 constexpr int kMsgBits = 77;
 constexpr int kCrcBits = 13;
-constexpr int kCrcLane = 64;  // first thread of the CRC checks
+constexpr int kCrcWords = 3;  // message bits 0..76
 constexpr int kMaxHardErrors = 18;
+constexpr int kThreads = kBits;  // a thread per bit
+constexpr int kEdgesPerThread = kEdges / kThreads;
+
+// The row's messages.
+struct RowState {
+  float tov[kEdges];
+  float t[kEdges];
+  float lt[kEdges];
+  float zn[kBits];
+  float row_sum[kChecks];
+  int row_neg[kChecks];
+  unsigned hard_words[kWords];  // each warp's ballot of llr > 0
+  unsigned cw_words[kWords];    // and of zn > 0
+};
 
 __device__ __forceinline__ float platanh(float x) {
   const float z = fabsf(x);
@@ -55,103 +85,130 @@ __device__ __forceinline__ float platanh(float x) {
   return s * 7.f;
 }
 
-__global__ void __launch_bounds__(kBits)
+// The four words of a predicate over the row's bits (bit t of the row is
+// bit t % 32 of word t / 32) on every thread, through `shared`. Ends in a
+// block barrier.
+__device__ __forceinline__ void row_words(bool own, unsigned* shared, unsigned (&words)[kWords]) {
+  const unsigned b = __ballot_sync(0xffffffffu, own);
+  if ((threadIdx.x & 31) == 0) shared[threadIdx.x >> 5] = b;
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) words[k] = shared[k];
+}
+
+// The code's tables, as ops/tables.py packs them: edge (384,) bit | check
+// << 8 in (check, slot) order; bit_edges (128,) the bit's three edges, 9
+// bits each; row_start (39,) each check's first edge; check_mask (38, 4) and
+// crc_mask (13, 3) 32-bit words of the bits of each check and CRC row.
+__global__ void __launch_bounds__(kThreads)
 bp_kernel(const float* __restrict__ llr, const bool* __restrict__ valid,
-          const int* __restrict__ nm, const int* __restrict__ mn_edge,
-          const uint8_t* __restrict__ crc, int8_t* __restrict__ cw_out,
+          const int* __restrict__ edge, const int* __restrict__ bit_edges,
+          const int* __restrict__ row_start, const int* __restrict__ check_mask,
+          const int* __restrict__ crc_mask, int8_t* __restrict__ cw_out,
           bool* __restrict__ found_out, int* __restrict__ iters_out,
           int* __restrict__ nerr_out, int max_iters) {
-  __shared__ int s_nm[kEdges];
-  __shared__ uint8_t s_crc[kCrcBits * kMsgBits];
-  __shared__ float tov[kEdges];
-  __shared__ float t_e[kEdges];
-  __shared__ float lt_e[kEdges];
-  __shared__ float zn[kBits];
-  __shared__ int cw[kBits];
-  __shared__ float row_sum[kChecks];
-  __shared__ int row_neg[kChecks];
-
+  __shared__ RowState st;
   const int row = blockIdx.x;
   const int j = threadIdx.x;
-  for (int e = j; e < kEdges; e += kBits) {
-    s_nm[e] = nm[e];
-    tov[e] = 0.f;
-  }
-  for (int i = j; i < kCrcBits * kMsgBits; i += kBits) s_crc[i] = crc[i];
-  const float l = llr[static_cast<size_t>(row) * kBits + j];
-  const int hard = l > 0.f;
-  const int e0 = mn_edge[3 * j];
-  const int e1 = mn_edge[3 * j + 1];
-  const int e2 = mn_edge[3 * j + 2];
-  const bool row_valid = valid[row];
-  __syncthreads();
+  int8_t* cw_row = cw_out + static_cast<size_t>(row) * kBits;
 
-  for (int it = 0; it < max_iters; ++it) {
-    const float z = l + tov[e0] + tov[e1] + tov[e2];
-    const int bit = z > 0.f;
-    zn[j] = z;
-    cw[j] = bit;
-    __syncthreads();
-
-    int failed = 0;
+  if (valid[row]) {
+    // this thread's words of the tables, for every iteration
+    const int be = __ldg(bit_edges + j);
+    int eg[kEdgesPerThread];
+#pragma unroll
+    for (int i = 0; i < kEdgesPerThread; ++i) eg[i] = __ldg(edge + j + kThreads * i);
+    int lo = 0, hi = 0;
+    unsigned cmask[kWords] = {}, rmask[kCrcWords] = {};
     if (j < kChecks) {
-      int par = 0;
-      for (int k = 0; k < kDegree; ++k) {
-        const int b = s_nm[j * kDegree + k];
-        if (b >= 0) par ^= cw[b];
-      }
-      failed = par;
-    } else if (j >= kCrcLane && j < kCrcLane + kCrcBits) {
-      const int r = j - kCrcLane;
-      int par = 0;
-      for (int i = 0; i < kMsgBits; ++i) par ^= s_crc[r * kMsgBits + i] & cw[i];
-      failed = par != cw[kMsgBits + r];
+      lo = __ldg(row_start + j);
+      hi = __ldg(row_start + j + 1);
+#pragma unroll
+      for (int k = 0; k < kWords; ++k) cmask[k] = __ldg(check_mask + j * kWords + k);
     }
-    const int n_failed = __syncthreads_count(failed);
-    const int n_err = __syncthreads_count(bit != hard);
-    if (n_failed == 0 && n_err < kMaxHardErrors && row_valid) {
-      cw_out[static_cast<size_t>(row) * kBits + j] = static_cast<int8_t>(bit);
-      if (j == 0) {
-        found_out[row] = true;
-        iters_out[row] = it;
-        nerr_out[row] = n_err;
-      }
-      return;  // uniform across the block: its outputs are frozen
+    if (j < kCrcBits) {
+#pragma unroll
+      for (int k = 0; k < kCrcWords; ++k) rmask[k] = __ldg(crc_mask + j * kCrcWords + k);
     }
+#pragma unroll
+    for (int i = 0; i < kEdgesPerThread; ++i) st.tov[j + kThreads * i] = 0.f;
+    const float l = llr[static_cast<size_t>(row) * kBits + j];
+    unsigned hard[kWords];
+    row_words(l > 0.f, st.hard_words, hard);
 
-    // bit -> check messages and their log-domain magnitudes
-    for (int e = j; e < kEdges; e += kBits) {
-      const int b = s_nm[e];
-      float t = 1.f;
-      if (b >= 0) t = tanhf(-0.5f * (zn[b] - tov[e]));
-      t_e[e] = t;
-      lt_e[e] = log2f(fmaxf(fabsf(t), 0x1p-80f));
-    }
-    __syncthreads();
-    if (j < kChecks) {
-      float S = lt_e[j * kDegree];
-      int neg = (s_nm[j * kDegree] >= 0 && t_e[j * kDegree] < 0.f);
-      for (int k = 1; k < kDegree; ++k) {
-        const int e = j * kDegree + k;
-        S += lt_e[e];
-        neg += (s_nm[e] >= 0 && t_e[e] < 0.f);
+    for (int it = 0; it < max_iters; ++it) {
+      const float z = l + st.tov[be & 511] + st.tov[(be >> 9) & 511] + st.tov[be >> 18];
+      st.zn[j] = z;
+      unsigned cw[kWords];
+      row_words(z > 0.f, st.cw_words, cw);  // its barrier also publishes zn
+      int n_err = 0;
+#pragma unroll
+      for (int k = 0; k < kWords; ++k) n_err += __popc(cw[k] ^ hard[k]);
+      bool failed = false;
+      if (j < kChecks) {
+        int par = 0;
+#pragma unroll
+        for (int k = 0; k < kWords; ++k) par += __popc(cmask[k] & cw[k]);
+        failed = (par & 1) != 0;
       }
-      row_sum[j] = S;
-      row_neg[j] = neg;
+      if (j < kCrcBits) {
+        int par = 0;
+#pragma unroll
+        for (int k = 0; k < kCrcWords; ++k) par += __popc(rmask[k] & cw[k]);
+        const int bit = (cw[2] >> (kMsgBits - 64 + j)) & 1;  // CRC bits 77..89: word 2
+        failed |= (par & 1) != bit;
+      }
+      if (!__syncthreads_or(failed) && n_err < kMaxHardErrors) {
+        cw_row[j] = static_cast<int8_t>(z > 0.f);
+        if (j == 0) {
+          found_out[row] = true;
+          iters_out[row] = it;
+          nerr_out[row] = n_err;
+        }
+        return;
+      }
+
+      // bit -> check messages and their log-domain magnitudes
+      float lt_own[kEdgesPerThread];
+      unsigned neg_own = 0u;
+#pragma unroll
+      for (int i = 0; i < kEdgesPerThread; ++i) {
+        const int e = j + kThreads * i;
+        const float te = tanhf(-0.5f * (st.zn[eg[i] & 255] - st.tov[e]));
+        lt_own[i] = log2f(fmaxf(fabsf(te), 0x1p-80f));
+        st.t[e] = te;
+        st.lt[e] = lt_own[i];
+        neg_own |= static_cast<unsigned>(te < 0.f) << i;
+      }
+      __syncthreads();
+      if (j < kChecks) {
+        float S = st.lt[lo];
+        int neg = st.t[lo] < 0.f;
+#pragma unroll
+        for (int k = 1; k < kDegree; ++k) {  // unrolled, so that the loads go out together
+          if (lo + k < hi) {
+            S += st.lt[lo + k];
+            neg += st.t[lo + k] < 0.f;
+          }
+        }
+        st.row_sum[j] = S;
+        st.row_neg[j] = neg;
+      }
+      __syncthreads();
+      // check -> bit messages (leave-one-out)
+#pragma unroll
+      for (int i = 0; i < kEdgesPerThread; ++i) {
+        const int e = j + kThreads * i;
+        const int r = eg[i] >> 8;
+        const float mag = exp2f(st.row_sum[r] - lt_own[i]);
+        const int others = st.row_neg[r] - static_cast<int>((neg_own >> i) & 1u);
+        const float loo = (1.f - 2.f * static_cast<float>(others & 1)) * mag;
+        st.tov[e] = 2.f * platanh(-loo);
+      }
+      __syncthreads();
     }
-    __syncthreads();
-    // check -> bit messages (leave-one-out), padded edges stay zero
-    for (int e = j; e < kEdges; e += kBits) {
-      if (s_nm[e] < 0) continue;
-      const int r = e / kDegree;
-      const float mag = exp2f(row_sum[r] - lt_e[e]);
-      const int others = row_neg[r] - (t_e[e] < 0.f);
-      const float loo = (1.f - 2.f * static_cast<float>(others & 1)) * mag;
-      tov[e] = 2.f * platanh(-loo);
-    }
-    __syncthreads();
   }
-  cw_out[static_cast<size_t>(row) * kBits + j] = 0;
+  cw_row[j] = 0;
   if (j == 0) {
     found_out[row] = false;
     iters_out[row] = 0;
@@ -162,14 +219,16 @@ bp_kernel(const float* __restrict__ llr, const bool* __restrict__ valid,
 }  // namespace
 
 // Plain C interface (ctypes). Launches on `stream`; returns cudaGetLastError().
-extern "C" int msk_bp(const void* llr, const void* valid, const void* nm, const void* mn_edge,
-                      const void* crc, void* cw_out, void* found_out, void* iters_out,
+extern "C" int msk_bp(const void* llr, const void* valid, const void* edge,
+                      const void* bit_edges, const void* row_start, const void* check_mask,
+                      const void* crc_mask, void* cw_out, void* found_out, void* iters_out,
                       void* nerr_out, int rows, int max_iters, void* stream) {
   if (rows <= 0) return 0;
-  bp_kernel<<<rows, kBits, 0, static_cast<cudaStream_t>(stream)>>>(
+  bp_kernel<<<rows, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(llr), static_cast<const bool*>(valid),
-      static_cast<const int*>(nm), static_cast<const int*>(mn_edge),
-      static_cast<const uint8_t*>(crc), static_cast<int8_t*>(cw_out),
+      static_cast<const int*>(edge), static_cast<const int*>(bit_edges),
+      static_cast<const int*>(row_start), static_cast<const int*>(check_mask),
+      static_cast<const int*>(crc_mask), static_cast<int8_t*>(cw_out),
       static_cast<bool*>(found_out), static_cast<int*>(iters_out),
       static_cast<int*>(nerr_out), max_iters);
   return static_cast<int>(cudaGetLastError());

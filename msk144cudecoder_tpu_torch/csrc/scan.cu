@@ -17,16 +17,37 @@
 //   smallest lag winning ties; then the top-k slices, smallest slice index
 //   winning ties; pos = (256 * slice + dec * lag_in_slice) mod N.
 //
-// What bounds it on the H100: not FLOPs (about 44 MFLOP for a window at
-// F = 101, dec = 4) and not device memory (the window is 41 KB and the E row
-// 10 KB per block), but latency and occupancy: one block per (window, f)
-// gives only B*F blocks, fewer than the 132 SMs at B = 1. The design keeps
-// the whole field G of one frequency in shared memory (41 KB at dec = 1),
-// so the pattern sums and slice maxima never touch device memory: the
-// Pallas kernel's (P, N, F) metric field is never formed. Each warp takes
-// whole slices and reduces (max, argmax) with shuffles; one thread picks
-// the top-k of the 21 slice maxima. The 42-tap correlation is a plain FP32
-// loop, not a tensor-core product: the field is too small to pay for one.
+// What bounds it on the H100: FP32 work, not device memory. Per (window, f)
+// the correlation is 42 complex multiply-adds at each of N/dec lags (about
+// 0.44 MFLOP at dec 4, with the pattern sums and magnitudes about 0.5), so a
+// batch of 64 windows at F = 101 is 3.2 GFLOP, 0.048 ms at 67 TFLOP/s, while
+// it reads 2.7 MB. The design:
+//   - one block per (window, tile of FT frequencies), FT in {1, 2, 4} and
+//     at most dec, chosen by the wrapper so that the grid still fills the
+//     SMs; the window is staged once per block into shared memory with
+//     16-byte loads, in polyphase order (sample s at (s mod dec) * N/dec +
+//     s / dec), so that the lanes of a warp read consecutive words at every
+//     tap;
+//   - each thread holds all its 20/dec lags x FT frequencies of complex
+//     sums in registers (20 at most): every sample read from shared memory
+//     feeds FT products and every tap (a broadcast) 20/dec. The taps run in
+//     order 0..41 for every output, and the lags whose taps wrap (one per
+//     thread of the first FT * 64/dec) take the R + chi * D form, so G is
+//     the per-lag loop's up to the sign of an exact zero;
+//   - G of the tile's frequencies (FT * N/dec <= N entries) then takes the
+//     window's place, so a block needs about 48 KB of dynamic shared memory
+//     and four blocks (32 warps) fit on an SM;
+//   - G is replaced in place by H[l] = G[l] + G[l + 336/dec], the frame's two
+//     sync words, so that T_m(l) = G[l + 864m/dec] + G[l + (864m+336)/dec]
+//     = H[l + 864m/dec] is one load with the same rounding; the pattern
+//     stage builds T_m once per lag and every pattern from it, then reduces
+//     each pattern's (max, first argmax) per slice with shuffles among the
+//     slice's 16 or 32 lanes (each lane 4 or more lags);
+//   - the top-k of the 21 slice maxima is a rank: one warp per (f, p), a
+//     lane per slice counts the slices that beat it, and a lane whose rank
+//     is below k writes its slot. Six block barriers in all, none per
+//     pattern.
+// No tensor cores: the port computes in FP32 with TF32 off.
 
 #include "common.cuh"
 
@@ -38,131 +59,307 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSlice = 256;
 constexpr int kSlices = 21;
+constexpr int kMaxDepth = 8;
+constexpr int kMainLen = 5120;  // dec * (the lags held in registers): no tap wraps there
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float2 term(const float2* G, int l, int m, int n2, int dec) {
-  // T_m(l) = G[l + 864m/dec] + G[l + (864m + 336)/dec], indices mod n2
-  // (both offsets are below n2, so one wrap at most)
-  int a = l + (kFrameLen * m) / dec;
-  int b = l + (kFrameLen * m + kSecondSync) / dec;
-  a -= (a >= n2) ? n2 : 0;
-  b -= (b >= n2) ? n2 : 0;
-  return cadd(G[a], G[b]);
+static_assert(kMainLen - 1 + kSyncTaps - 1 < kWindowLen, "a tap of the tiled lags wraps");
+static_assert((kMainLen / 4) % kThreads == 0, "the threads share the main lags evenly");
+
+// A block's dynamic shared memory: the window (then G of the tile's
+// frequencies), their taps, and the value and lag of each (frequency,
+// pattern, slice) maximum. The widest tile (4, at dec 4) at depth 8 needs
+// 48,192 bytes, within the 48 KB a launch may use without opting in, so
+// four blocks fit on an SM.
+constexpr int smem_bytes(int freq_tile, int depth) {
+  return static_cast<int>(sizeof(float2)) *
+         (kWindowLen + kSyncTaps * freq_tile + freq_tile * depth * kSlices);
 }
+static_assert(smem_bytes(4, kMaxDepth) <= 48 * 1024, "the widest block needs an opt-in");
 
-__device__ __forceinline__ float pattern_metric(const float2* G, int l, int p, int n2,
-                                                int dec) {
-  float2 s;
-  if (p < 6) {
-    s = term(G, l, 0, n2, dec);
-    for (int m = 1; m <= p; ++m) s = cadd(s, term(G, l, m, n2, dec));
-  } else {
-    s = cadd(term(G, l, 0, n2, dec), term(G, l, 3, n2, dec));
-    if (p == 7) s = cadd(s, term(G, l, 4, n2, dec));
+// |s_p| at coarse lag l for the patterns p < depth, in the plain version's
+// order (patterns 6 and 7 need T_0, T_3, T_4, which depth > 6 computes).
+// H[l] = G[l] + G[l + 336/dec], so T_m(l) = G[l + 864m/dec] +
+// G[l + (864m + 336)/dec] = H[l + 864m/dec], indices mod N/dec.
+template <int DEC>
+__device__ __forceinline__ void pattern_metrics(const float2* H, int l, int depth,
+                                                float (&m)[kMaxDepth]) {
+  constexpr int n2 = kWindowLen / DEC;
+  float2 T[kFrames];
+#pragma unroll
+  for (int k = 0; k < kFrames; ++k) {
+    if (k < depth) {
+      int a = l + (kFrameLen * k) / DEC;
+      a -= (a >= n2) ? n2 : 0;
+      T[k] = H[a];
+    }
   }
-  return hypotf(s.x, s.y);
+  float2 S = T[0];
+  m[0] = hypotf(S.x, S.y);
+#pragma unroll
+  for (int p = 1; p < kFrames; ++p) {
+    if (p < depth) {
+      S = cadd(S, T[p]);
+      m[p] = hypotf(S.x, S.y);
+    }
+  }
+  if (depth > kFrames) {
+    const float2 S6 = cadd(T[0], T[3]);
+    m[6] = hypotf(S6.x, S6.y);
+    if (depth > kFrames + 1) {
+      const float2 S7 = cadd(S6, T[4]);
+      m[7] = hypotf(S7.x, S7.y);
+    }
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int DEC, int FT>
+__global__ void __launch_bounds__(kThreads, 4)
 scan_kernel(const float2* __restrict__ c, const float2* __restrict__ B,
             const float2* __restrict__ E_dec, const float2* __restrict__ chi,
             int* __restrict__ pos_out, float* __restrict__ xb_out, int F, int depth,
-            int num_cand, int dec) {
-  __shared__ float2 G[kWindowLen];  // n2 = N/dec entries used
-  __shared__ float2 Bs[kSyncTaps];
-  __shared__ float smax[kSlices];
-  __shared__ int sarg[kSlices];
+            int num_cand) {
+  constexpr int n2 = kWindowLen / DEC;
+  constexpr int kMain = kMainLen / DEC;     // lags whose 42 taps never wrap
+  constexpr int kLags = kMain / kThreads;   // of them per thread: 20/dec
+  constexpr int kTail = n2 - kMain;         // the last 64/dec lags
+  constexpr int slice2 = kSlice / DEC;
+  // lanes per slice in the pattern stage: 4 or more lags each
+  constexpr int kSliceLanes = slice2 >= 128 ? 32 : 16;
+  constexpr int kSlicesPerWarp = 32 / kSliceLanes;
+  static_assert(FT <= DEC, "G of the tile's frequencies fits in the window's place");
+  static_assert(kTail * FT <= kThreads, "one wrapping lag per thread");
+  extern __shared__ float4 smem[];
+  // the window, polyphase; once the correlation is done, G[ft * n2 + l]
+  float2* cs = reinterpret_cast<float2*>(smem);
+  float2* G = cs;
+  float2* Bs = cs + kWindowLen;  // Bs[i * FT + ft]
+  float* smax = reinterpret_cast<float*>(Bs + kSyncTaps * FT);  // [(ft * depth + p) * 21 + s]
+  int* sarg = reinterpret_cast<int*>(smax + FT * depth * kSlices);
 
-  const int f = blockIdx.x % F;
-  const int w = blockIdx.x / F;
-  const int n2 = kWindowLen / dec;
-  const float2* cw = c + static_cast<size_t>(w) * kWindowLen;
-  if (threadIdx.x < kSyncTaps) Bs[threadIdx.x] = B[threadIdx.x * F + f];
+  const int tiles = (F + FT - 1) / FT;
+  const int w = blockIdx.x / tiles;
+  const int f0 = (blockIdx.x - w * tiles) * FT;
+  const int nf = min(FT, F - f0);  // the last tile of a window is ragged
+  const int tid = threadIdx.x;
+
+  const float4* cw = reinterpret_cast<const float4*>(c + static_cast<size_t>(w) * kWindowLen);
+  for (int v = tid; v < kWindowLen / 2; v += kThreads) {
+    const float4 q = cw[v];
+    const int s = 2 * v;
+    cs[(s % DEC) * n2 + s / DEC] = make_float2(q.x, q.y);
+    cs[((s + 1) % DEC) * n2 + (s + 1) / DEC] = make_float2(q.z, q.w);
+  }
+  for (int j = tid; j < kSyncTaps * FT; j += kThreads) {
+    const int i = j / FT;
+    const int ft = j - i * FT;
+    Bs[j] = ft < nf ? B[i * F + f0 + ft] : make_float2(0.f, 0.f);
+  }
   __syncthreads();
 
-  const float2 x = chi[f];
-  const float2* Ef = E_dec + static_cast<size_t>(f) * n2;
-  for (int l = threadIdx.x; l < n2; l += kThreads) {
-    const int lag = l * dec;
-    float2 R = make_float2(0.f, 0.f);
+  // the correlation at the lags whose taps never wrap: lags tid + 256u of
+  // every frequency of the tile, all in registers, taps in order 0..41
+  float2 acc[kLags][FT];
+#pragma unroll
+  for (int u = 0; u < kLags; ++u)
+#pragma unroll
+    for (int ft = 0; ft < FT; ++ft) acc[u][ft] = make_float2(0.f, 0.f);
+#pragma unroll 6
+  for (int i = 0; i < kSyncTaps; ++i) {
+    // sample dec*l + i of lag l sits at (i % dec) * n2 + l + i / dec
+    const float2* ci = cs + (i % DEC) * n2 + i / DEC + tid;
+    float2 b[FT];
+#pragma unroll
+    for (int ft = 0; ft < FT; ++ft) b[ft] = Bs[i * FT + ft];
+#pragma unroll
+    for (int u = 0; u < kLags; ++u) {
+      const float2 a = ci[u * kThreads];
+#pragma unroll
+      for (int ft = 0; ft < FT; ++ft) acc[u][ft] = cadd(acc[u][ft], cmul_conj(a, b[ft]));
+    }
+  }
+  // one of the last lags, whose wrapped taps also carry chi
+  const int tail_ft = tid / kTail;
+  const int tail_l = kMain + (tid - tail_ft * kTail);
+  const bool has_tail = tail_ft < nf;
+  float2 tail = make_float2(0.f, 0.f);
+  if (has_tail) {
     float2 D = make_float2(0.f, 0.f);
     for (int i = 0; i < kSyncTaps; ++i) {
-      int t = lag + i;
-      const bool wrapped = t >= kWindowLen;
-      t -= wrapped ? kWindowLen : 0;
-      const float2 v = cmul_conj(cw[t], Bs[i]);
-      R = cadd(R, v);
+      int s = DEC * tail_l + i;
+      const bool wrapped = s >= kWindowLen;
+      s -= wrapped ? kWindowLen : 0;
+      const float2 v = cmul_conj(cs[(s % DEC) * n2 + s / DEC], Bs[i * FT + tail_ft]);
+      tail = cadd(tail, v);
       if (wrapped) D = cadd(D, v);
     }
-    G[l] = cmul(Ef[l], cadd(R, cmul(x, D)));
+    tail = cadd(tail, cmul(chi[f0 + tail_ft], D));
+  }
+  __syncthreads();  // the window is read for the last time
+#pragma unroll
+  for (int u = 0; u < kLags; ++u) {
+    const int l = tid + u * kThreads;
+#pragma unroll
+    for (int ft = 0; ft < FT; ++ft)
+      if (ft < nf) G[ft * n2 + l] = cmul(E_dec[static_cast<size_t>(f0 + ft) * n2 + l], acc[u][ft]);
+  }
+  if (has_tail)
+    G[tail_ft * n2 + tail_l] = cmul(E_dec[static_cast<size_t>(f0 + tail_ft) * n2 + tail_l], tail);
+  __syncthreads();
+  // G becomes H[l] = G[l] + G[l + 336/dec], the sum over the frame's two
+  // sync words, so that T_m(l) = H[l + 864m/dec] with the same rounding
+  auto sync_pair = [&](int ft, int l) {
+    int l2 = l + kSecondSync / DEC;
+    l2 -= (l2 >= n2) ? n2 : 0;
+    return cadd(G[ft * n2 + l], G[ft * n2 + l2]);
+  };
+#pragma unroll
+  for (int u = 0; u < kLags; ++u)
+#pragma unroll
+    for (int ft = 0; ft < FT; ++ft)
+      if (ft < nf) acc[u][ft] = sync_pair(ft, tid + u * kThreads);
+  if (has_tail) tail = sync_pair(tail_ft, tail_l);
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < kLags; ++u)
+#pragma unroll
+    for (int ft = 0; ft < FT; ++ft)
+      if (ft < nf) G[ft * n2 + tid + u * kThreads] = acc[u][ft];
+  if (has_tail) G[tail_ft * n2 + tail_l] = tail;
+  __syncthreads();
+
+  // every pattern's (max, first argmax) per (frequency, slice): kSliceLanes
+  // lanes per slice, kSlicesPerWarp slices per warp at a time
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int sl = lane % kSliceLanes;
+  for (int base = 0; base < nf * kSlices; base += kWarps * kSlicesPerWarp) {
+    const int task = base + warp * kSlicesPerWarp + lane / kSliceLanes;
+    const bool active = task < nf * kSlices;
+    const int ft = task / kSlices;
+    const int s = task - ft * kSlices;
+    float best[kMaxDepth];
+    int arg[kMaxDepth];
+#pragma unroll
+    for (int p = 0; p < kMaxDepth; ++p) {
+      best[p] = -1.f;
+      arg[p] = slice2;
+    }
+    if (active) {
+      const float2* Hf = G + ft * n2;
+      for (int j = sl; j < slice2; j += kSliceLanes) {  // j upward: the first maximum stays
+        int l = s * slice2 + j;
+        l -= (l >= n2) ? n2 : 0;
+        float m[kMaxDepth];
+        pattern_metrics<DEC>(Hf, l, depth, m);
+#pragma unroll
+        for (int p = 0; p < kMaxDepth; ++p) {
+          if (p < depth && m[p] > best[p]) {
+            best[p] = m[p];
+            arg[p] = j;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < kMaxDepth; ++p) {
+      if (p < depth) {
+        float b = best[p];
+        int a = arg[p];
+        for (int o = kSliceLanes / 2; o > 0; o >>= 1) {  // within the slice's lanes
+          const float ob = __shfl_xor_sync(kFull, b, o);
+          const int oa = __shfl_xor_sync(kFull, a, o);
+          if (ob > b || (ob == b && oa < a)) {
+            b = ob;
+            a = oa;
+          }
+        }
+        if (active && sl == 0) {
+          smax[(ft * depth + p) * kSlices + s] = b;
+          sarg[(ft * depth + p) * kSlices + s] = a;
+        }
+      }
+    }
   }
   __syncthreads();
 
-  const int slice2 = kSlice / dec;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int p = 0; p < depth; ++p) {
-    for (int s = warp; s < kSlices; s += kWarps) {
-      float best = -1.f;
-      int arg = slice2;
-      for (int j = lane; j < slice2; j += 32) {
-        int l = s * slice2 + j;
-        l -= (l >= n2) ? n2 : 0;
-        const float v = pattern_metric(G, l, p, n2, dec);
-        if (v > best) {  // lanes walk j upward: the first maximum stays
-          best = v;
-          arg = j;
-        }
-      }
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ob = __shfl_xor_sync(0xffffffffu, best, o);
-        const int oa = __shfl_xor_sync(0xffffffffu, arg, o);
-        if (ob > best || (ob == best && oa < arg)) {
-          best = ob;
-          arg = oa;
-        }
-      }
-      if (lane == 0) {
-        smax[s] = best;
-        sarg[s] = arg;
-      }
+  // top-k slices per (f, p) by rank: value descending, slice index ascending
+  for (int task = warp; task < nf * depth; task += kWarps) {
+    if (lane >= kSlices) continue;
+    const float* sm = smax + task * kSlices;
+    const float v = sm[lane];
+    int rank = 0;
+    for (int s = 0; s < kSlices; ++s) {
+      const float o = sm[s];
+      rank += (o > v || (o == v && s < lane)) ? 1 : 0;
     }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      unsigned taken = 0u;
-      const size_t out = (static_cast<size_t>(w * F + f) * depth + p) * num_cand;
-      for (int k = 0; k < num_cand; ++k) {
-        int bs = -1;
-        float bv = -2.f;
-        for (int s = 0; s < kSlices; ++s) {
-          if (!(taken & (1u << s)) && smax[s] > bv) {  // lowest slice wins ties
-            bv = smax[s];
-            bs = s;
-          }
-        }
-        taken |= 1u << bs;
-        pos_out[out + k] = (kSlice * bs + dec * sarg[bs]) % kWindowLen;
-        xb_out[out + k] = bv;
-      }
+    if (rank < num_cand) {
+      const int ft = task / depth;
+      const int p = task - ft * depth;
+      const size_t out =
+          (static_cast<size_t>(w * F + f0 + ft) * depth + p) * num_cand + rank;
+      pos_out[out] = (kSlice * lane + DEC * sarg[task * kSlices + lane]) % kWindowLen;
+      xb_out[out] = v;
     }
-    __syncthreads();
   }
+}
+
+struct ScanArgs {
+  const float2* c;
+  const float2* B;
+  const float2* E_dec;
+  const float2* chi;
+  int* pos_out;
+  float* xb_out;
+  int n_win, F, depth, num_cand;
+  cudaStream_t stream;
+};
+
+template <int DEC, int FT>
+cudaError_t launch(const ScanArgs& a) {
+  const int blocks = a.n_win * ((a.F + FT - 1) / FT);
+  scan_kernel<DEC, FT><<<blocks, kThreads, smem_bytes(FT, a.depth), a.stream>>>(
+      a.c, a.B, a.E_dec, a.chi, a.pos_out, a.xb_out, a.F, a.depth, a.num_cand);
+  return cudaGetLastError();
+}
+
+template <int DEC>
+cudaError_t launch_tile(const ScanArgs& a, int freq_tile) {
+  if (freq_tile == 1) return launch<DEC, 1>(a);
+  if constexpr (DEC >= 2) {
+    if (freq_tile == 2) return launch<DEC, 2>(a);
+  }
+  if constexpr (DEC >= 4) {
+    if (freq_tile == 4) return launch<DEC, 4>(a);
+  }
+  return cudaErrorInvalidValue;  // a tile wider than dec does not fit
 }
 
 }  // namespace
 
-// Plain C interface (ctypes). Launches on `stream`; returns cudaGetLastError().
+// Plain C interface (ctypes). Launches on `stream`; returns
+// cudaGetLastError() after the launch. freq_tile: frequencies
+// per block (1, 2 or 4, at most dec; the wrapper's scan_tile). c must be
+// 16-byte aligned.
 extern "C" int msk_scan(const void* c, const void* B, const void* E_dec, const void* chi,
                         void* pos_out, void* xb_out, int n_win, int F, int depth,
-                        int num_cand, int dec, void* stream) {
+                        int num_cand, int dec, int freq_tile, void* stream) {
   if (n_win <= 0 || F <= 0) return 0;
-  if (depth < 1 || depth > 8 || num_cand < 1 || num_cand > 8 ||
-      (dec != 1 && dec != 2 && dec != 4))
+  if (depth < 1 || depth > kMaxDepth || num_cand < 1 || num_cand > 8 ||
+      reinterpret_cast<uintptr_t>(c) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  scan_kernel<<<n_win * F, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(c), static_cast<const float2*>(B),
-      static_cast<const float2*>(E_dec), static_cast<const float2*>(chi),
-      static_cast<int*>(pos_out), static_cast<float*>(xb_out), F, depth, num_cand, dec);
-  return static_cast<int>(cudaGetLastError());
+  const ScanArgs a{static_cast<const float2*>(c), static_cast<const float2*>(B),
+                   static_cast<const float2*>(E_dec), static_cast<const float2*>(chi),
+                   static_cast<int*>(pos_out), static_cast<float*>(xb_out), n_win, F, depth,
+                   num_cand, static_cast<cudaStream_t>(stream)};
+  cudaError_t err;
+  switch (dec) {
+    case 1: err = launch_tile<1>(a, freq_tile); break;
+    case 2: err = launch_tile<2>(a, freq_tile); break;
+    case 4: err = launch_tile<4>(a, freq_tile); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 // The message of a CUDA error code, for the Python wrappers' exceptions.

@@ -24,6 +24,7 @@ launch counts change under a lock.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -43,17 +44,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 SIGNATURES = {
-    # c, B, E_dec, chi, pos_out, xb_out, n_win, F, depth, num_cand, dec, stream
-    "msk_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # c, B, E_dec, chi, pos_out, xb_out, n_win, F, depth, num_cand, dec,
+    # freq_tile, stream
+    "msk_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # c, W, chi, pos, f_idx, p_idx, sync_conj, pp12, masks, sync_pm, sb_out,
     # nbad_out, n_win, S, F, stream
     "msk_survivor": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # c, W, pos, sync_conj, pp12, masks, sync_pm, sb_out, nbad_out, n_win, F,
     # depth, num_cand, stream
     "msk_demod": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # llr, valid, nm, mn_edge, crc, cw_out, found_out, iters_out, nerr_out,
-    # rows, max_iters, stream
-    "msk_bp": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # llr, valid, edge, bit_edges, row_start, check_mask, crc_mask, cw_out,
+    # found_out, iters_out, nerr_out, rows, max_iters, stream
+    "msk_bp": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
 }
 
 _lib = None  # the loaded library, once built
@@ -156,6 +158,30 @@ def raise_on_error(name: str, rc: int) -> None:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def num_sms(device: torch.device) -> int:
+    """Streaming multiprocessors of the card (the kernels size their grids
+    by it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point decodes on: `device`, or the card when it
+    is None. A CUDA device without a card raises: the CPU runs only when
+    the caller asks for it ("cpu"). A device torch cannot parse, or of any
+    other type, raises ValueError."""
+    try:
+        dev = torch.device("cuda" if device is None else device)
+    except RuntimeError as e:
+        raise ValueError(f"unsupported device {device!r}: {e}") from None
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"no CUDA device is available for {dev} "
+                           "(pass device='cpu' to run the plain torch path on the CPU)")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}: use cuda or cpu")
+    return dev
 
 
 def on_cuda(t: torch.Tensor) -> bool:

@@ -123,15 +123,18 @@ def bp_decode_plain(llr: torch.Tensor, valid: torch.Tensor, lt: TorchLdpcTables,
 def bp_decode_cuda(llr: torch.Tensor, valid: torch.Tensor, lt: TorchLdpcTables,
                    max_iters: int = C.NUM_BP_ITERATIONS) -> BPResult:
     """Kernel B3 (csrc/bp.cu): one block of 128 threads per codeword row.
-    llr (R, 128) float32, valid (R,) bool and the tables, contiguous on one
-    CUDA device."""
+    llr (R, 128) float32, valid (R,) bool and the tables' packed forms,
+    contiguous on one CUDA device."""
     R = llr.shape[0] if llr.dim() == 2 else -1
+    n_edges = 3 * T.N_BITS
     kernels.check_tensors("bp_decode",
                           llr=(llr, torch.float32, (R, T.N_BITS)),
                           valid=(valid, torch.bool, (R,)),
-                          nm=(lt.nm, torch.int32, (T.N_CHECKS, T.MAX_ROW_DEGREE)),
-                          mn_edge=(lt.mn_edge, torch.int32, (T.N_BITS, 3)),
-                          crc=(lt.crc, torch.uint8, (C.NUM_CRC_BITS, C.NUM_MESSAGE_BITS)))
+                          edge=(lt.edge, torch.int32, (n_edges,)),
+                          bit_edges=(lt.bit_edges, torch.int32, (T.N_BITS,)),
+                          row_start=(lt.row_start, torch.int32, (T.N_CHECKS + 1,)),
+                          check_mask=(lt.check_mask, torch.int32, (T.N_CHECKS, T.N_BITS // 32)),
+                          crc_mask=(lt.crc_mask, torch.int32, (C.NUM_CRC_BITS, 3)))
     if not 0 <= max_iters <= 1000:
         raise ValueError(f"max_iters must be in [0, 1000], got {max_iters}")
     dev = llr.device
@@ -142,8 +145,9 @@ def bp_decode_cuda(llr: torch.Tensor, valid: torch.Tensor, lt: TorchLdpcTables,
     if R:
         lib = kernels.library()
         with torch.cuda.device(dev):
-            rc = lib.msk_bp(llr.data_ptr(), valid.data_ptr(), lt.nm.data_ptr(),
-                            lt.mn_edge.data_ptr(), lt.crc.data_ptr(), cw.data_ptr(),
+            rc = lib.msk_bp(llr.data_ptr(), valid.data_ptr(), lt.edge.data_ptr(),
+                            lt.bit_edges.data_ptr(), lt.row_start.data_ptr(),
+                            lt.check_mask.data_ptr(), lt.crc_mask.data_ptr(), cw.data_ptr(),
                             found.data_ptr(), iters.data_ptr(), nerr.data_ptr(),
                             R, max_iters, kernels.stream_ptr(dev))
         kernels.raise_on_error("msk_bp", rc)

@@ -30,7 +30,7 @@ from torch import nn
 
 from .. import constants as C
 from ..config import DecoderConfig
-from . import analytic, demod, ldpc, scan, survivor, tables
+from . import analytic, demod, kernels, ldpc, scan, survivor, tables
 from .ldpc import BPResult
 
 _N = C.WINDOW_LEN
@@ -322,7 +322,8 @@ class DecodePipeline(nn.Module):
 
     @property
     def ldpc_tables(self) -> tables.TorchLdpcTables:
-        return tables.TorchLdpcTables(self.ldpc_nm, self.ldpc_mn_edge, self.ldpc_crc)
+        return tables.TorchLdpcTables(*(getattr(self, "ldpc_" + name)
+                                        for name in tables.TorchLdpcTables._fields))
 
     def preprocess(self, raw: torch.Tensor) -> torch.Tensor:
         """Raw windows (B, raw_len) -> analytic complex64 windows (B, N).
@@ -406,11 +407,12 @@ class DecodePipeline(nn.Module):
 
 def decode_raw(raw, cfg: DecoderConfig, device=None) -> WindowDecodeResult:
     """Batch of raw windows (B, raw_len) -> batched results on `device`
-    (default: the tensor's device, or the CPU for a numpy array). Builds the
-    pipeline on each call; a stream keeps one (runtime.StreamDecoder)."""
+    (default: the card; without one this raises unless device is "cpu").
+    Builds the pipeline on each call; a stream keeps one
+    (runtime.StreamDecoder)."""
     if not isinstance(raw, torch.Tensor):
         raw = torch.from_numpy(np.asarray(raw))
-    device = raw.device if device is None else torch.device(device)
+    device = kernels.resolve_device(device)
     return DecodePipeline(cfg).to(device)(raw.to(device))
 
 

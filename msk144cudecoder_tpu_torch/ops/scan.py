@@ -108,13 +108,45 @@ def scan_plain(c: torch.Tensor, B: torch.Tensor, E_dec: torch.Tensor,
     return select_candidates(pattern_metrics(G, scan_depth, dec), num_cand, dec)
 
 
+FREQ_TILES = (4, 2, 1)  # frequencies per block of kernel B1, widest first
+
+
+def scan_tile(n_win: int, F: int, dec: int, num_sms: int) -> int:
+    """Frequencies per block of kernel B1: the widest tile of at most dec
+    (G of the tile takes the window's place in shared memory) whose grid of
+    n_win * ceil(F / tile) blocks still gives every SM one, else 1."""
+    _check_dec(dec)
+    for ft in FREQ_TILES[:-1]:
+        if ft <= dec and n_win * -(-F // ft) >= num_sms:
+            return ft
+    return FREQ_TILES[-1]
+
+
+SMEM_NO_OPT_IN = 48 * 1024  # bytes a block may use without an opt-in
+
+
+def scan_smem_bytes(freq_tile: int, dec: int, scan_depth: int) -> int:
+    """Kernel B1's dynamic shared memory (smem_bytes in csrc/scan.cu, which
+    asserts the same bound at compile time): the staged window, whose place
+    G of the tile's frequencies takes (freq_tile * N/dec <= N entries), their
+    42 taps, and the value and lag of 21 slice maxima per frequency and
+    pattern. The kernel launches without a shared-memory opt-in, so every
+    tile must stay within SMEM_NO_OPT_IN."""
+    n2 = _check_dec(dec)
+    if freq_tile * n2 > _N:
+        raise ValueError(f"a tile of {freq_tile} frequencies does not fit at dec {dec}")
+    return 8 * (_N + _TAPS * freq_tile + freq_tile * scan_depth * C.NUM_SCAN_SLICES)
+
+
 def scan_cuda(c: torch.Tensor, B: torch.Tensor, E_dec: torch.Tensor,
               chi: torch.Tensor, scan_depth: int,
               num_cand: int = C.NUM_CANDIDATES_PER_PATTERN,
               dec: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel B1 (csrc/scan.cu) on windows c (Bw, N) -> (pos, xb) each
     (Bw, F, P, k). Every input must be a contiguous complex64 CUDA tensor on
-    one device."""
+    one device. The kernel stages each window with 16-byte loads, so a c
+    that does not start on a 16-byte boundary (a view into a larger tensor)
+    is copied first."""
     n2 = _check_dec(dec)
     F = B.shape[-1]
     kernels.check_tensors("scan", c=(c, torch.complex64, (-1, _N)),
@@ -130,10 +162,13 @@ def scan_cuda(c: torch.Tensor, B: torch.Tensor, E_dec: torch.Tensor,
     xb = torch.empty((nw, F, scan_depth, num_cand), dtype=torch.float32, device=c.device)
     if nw and F:
         lib = kernels.library()
+        if c.data_ptr() % 16:
+            c = c.clone()
+        ft = scan_tile(nw, F, dec, kernels.num_sms(c.device))
         with torch.cuda.device(c.device):
             rc = lib.msk_scan(c.data_ptr(), B.data_ptr(), E_dec.data_ptr(),
                               chi.data_ptr(), pos.data_ptr(), xb.data_ptr(),
-                              nw, F, scan_depth, num_cand, dec,
+                              nw, F, scan_depth, num_cand, dec, ft,
                               kernels.stream_ptr(c.device))
         kernels.raise_on_error("msk_scan", rc)
         kernels.count_launch(scan_cuda)

@@ -123,14 +123,47 @@ class TorchLdpcTables(NamedTuple):
     nm: torch.Tensor  # (38, 11) int32 bit index per (check, slot), -1 pad
     mn_edge: torch.Tensor  # (128, 3) int32 flat edge 11*check + slot
     crc: torch.Tensor  # (13, 77) uint8 CRC-13 GF(2) matrix
+    # kernel B3's forms. The 384 real edges in (check, slot) order:
+    edge: torch.Tensor  # (384,) int32 bit | check << 8
+    bit_edges: torch.Tensor  # (128,) int32 the bit's 3 real edges, 9 bits each
+    row_start: torch.Tensor  # (39,) int32 first real edge of each check
+    # 32-bit words (int32 bit patterns); bit b of word w stands for codeword
+    # bit 32w + b
+    check_mask: torch.Tensor  # (38, 4) the bits of each parity check
+    crc_mask: torch.Tensor  # (13, 3) the message bits of each CRC row
+
+
+def pack_words(bits: np.ndarray) -> np.ndarray:
+    """(..., n) 0/1 -> (..., ceil(n/32)) int32: bit b of word w is bits[32w + b]."""
+    n = bits.shape[-1]
+    padded = np.zeros(bits.shape[:-1] + (-(-n // 32) * 32,), np.uint64)
+    padded[..., :n] = bits
+    words = padded.reshape(bits.shape[:-1] + (-1, 32)) << np.arange(32, dtype=np.uint64)
+    return words.sum(axis=-1).astype(np.uint32).view(np.int32)
 
 
 def ldpc_to_torch(device) -> TorchLdpcTables:
-    """ldpc_tables.NM / MN and crc.CRC_MATRIX as tensors on `device`."""
+    """ldpc_tables.NM / MN and crc.CRC_MATRIX as tensors on `device`, and
+    kernel B3's packed forms of them."""
     mn = T.MN.astype(np.int32)  # (128, 3, 2): (check, slot) per bit
     mn_edge = mn[..., 0] * T.MAX_ROW_DEGREE + mn[..., 1]
+    real = (T.NM >= 0).reshape(-1)
+    compact = np.cumsum(real) - 1  # flat edge -> its index among the real edges
+    checks = np.repeat(np.arange(T.N_CHECKS), T.MAX_ROW_DEGREE)[real]
+    edge = T.NM.reshape(-1)[real] | checks << 8
+    ce = compact[mn_edge]  # (128, 3)
+    bit_edges = ce[:, 0] | ce[:, 1] << 9 | ce[:, 2] << 18
+    row_start = np.concatenate([[0], np.cumsum((T.NM >= 0).sum(axis=1))])
+    on_check = np.zeros((T.N_CHECKS, T.N_BITS), np.uint8)
+    for r in range(T.N_CHECKS):
+        on_check[r, T.NM[r][T.NM[r] >= 0]] = 1
+
+    def put(a, dtype=np.int32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
     return TorchLdpcTables(
-        nm=torch.from_numpy(T.NM.astype(np.int32)).to(device),
-        mn_edge=torch.from_numpy(np.ascontiguousarray(mn_edge, np.int32)).to(device),
-        crc=torch.from_numpy(crc_mod.CRC_MATRIX.astype(np.uint8)).to(device),
+        nm=put(T.NM), mn_edge=put(mn_edge), crc=put(crc_mod.CRC_MATRIX, np.uint8),
+        edge=put(edge), bit_edges=put(bit_edges), row_start=put(row_start),
+        check_mask=put(pack_words(on_check)),
+        crc_mask=put(pack_words(crc_mod.CRC_MATRIX.astype(np.uint8))),
     )

@@ -28,6 +28,7 @@ import torch
 import torch.distributed as dist
 
 from .. import constants as C
+from ..ops import kernels
 from .sharding import make_mesh
 
 
@@ -58,14 +59,11 @@ def process_count() -> int:
 
 def local_devices(device=None) -> list[torch.device]:
     """This process's devices: every visible CUDA device for None or a bare
-    "cuda", the one device for "cuda:N" or "cpu"."""
-    dev = None if device is None else torch.device(device)
-    if dev is None or (dev.type == "cuda" and dev.index is None):
-        if torch.cuda.is_available():
-            return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-        if dev is not None:
-            raise RuntimeError("no CUDA device is available")
-        return [torch.device("cpu")]
+    "cuda", the one device for "cuda:N" or "cpu". Without a card only "cpu"
+    gives a device; anything else raises."""
+    dev = kernels.resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     return [dev]
 
 

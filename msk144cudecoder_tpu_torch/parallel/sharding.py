@@ -28,7 +28,7 @@ import torch
 
 from .. import constants as C
 from ..config import DecoderConfig
-from ..ops import pipeline
+from ..ops import kernels, pipeline
 from ..ops.tables import padded_freqs
 from ..runtime.decoder import to_host
 
@@ -36,12 +36,13 @@ from ..runtime.decoder import to_host
 def make_mesh(n_time: int = 1, n_freq: Optional[int] = None,
               devices: Optional[Sequence] = None) -> np.ndarray:
     """An (n_time, n_freq) object array of torch devices. Default devices:
-    every visible CUDA device, or the CPU; default n_freq: all of them on
-    the freq axis. A device may be listed more than once."""
+    every visible CUDA device (without a card this raises: a CPU mesh is
+    asked for by listing "cpu"); default n_freq: all of them on the freq
+    axis. A device may be listed more than once."""
     if devices is None:
-        devices = ([f"cuda:{i}" for i in range(torch.cuda.device_count())]
-                   if torch.cuda.is_available() else ["cpu"])
-    devices = [torch.device(d) for d in devices]
+        kernels.resolve_device("cuda")  # raises without a card
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    devices = [kernels.resolve_device(d) for d in devices]
     if n_freq is None:
         n_freq = len(devices) // n_time
     if n_time * n_freq != len(devices) or n_time < 1 or n_freq < 1:

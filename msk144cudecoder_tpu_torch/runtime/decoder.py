@@ -26,7 +26,7 @@ import torch
 
 from .. import constants as C
 from ..config import DecoderConfig
-from ..ops import pipeline
+from ..ops import kernels, pipeline
 from ..protocol import msg77
 from .metrics import ScopedMetric
 from .result_filter import ResultFilter, ResultItem
@@ -38,18 +38,20 @@ DECODE_CACHE_MAX = 4096
 
 
 class StreamDecoder:
-    def __init__(self, cfg: DecoderConfig, device="cpu",
+    def __init__(self, cfg: DecoderConfig, device=None,
                  survivor_capacity: Optional[int] = None,
                  freqs: Optional[np.ndarray] = None):
-        """survivor_capacity: LDPC rows decoded per window, the bound the
-        overflow warning cites: cfg.max_survivors on one device, K * n_freq
-        on a mesh (each frequency shard decodes its own top K). freqs: the
+        """device: the card by default; without one this raises unless the
+        caller passes "cpu". survivor_capacity: LDPC rows decoded per
+        window, the bound the overflow warning cites: cfg.max_survivors on
+        one device, K * n_freq on a mesh (each frequency shard decodes its
+        own top K). freqs: the
         grid that candidate indices refer to, when it is not cfg.freqs (a
         mesh pads the grid; real channels keep their indices). The device
         pipeline is built at the first device call, so a decoder that only
         post-processes (the parallel runner's) never builds one."""
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = kernels.resolve_device(device)
         if self.device.type == "cuda":
             # the port computes in float32: no TF32 in any cuBLAS/cuDNN call
             torch.backends.cuda.matmul.allow_tf32 = False

@@ -142,7 +142,7 @@ def test_decode_to_host_from_threads(busy_windows):
     sequential result, leaf for leaf."""
     cfg = DecoderConfig(search_width=64.0, scan_depth=6, nbadsync_threshold=3,
                         max_survivors=128, center_frequency=1450.0)
-    dec = StreamDecoder(cfg)
+    dec = StreamDecoder(cfg, "cpu")
     batches = [busy_windows[i:i + 2] for i in range(4)]
     want = [dec.decode_to_host(b) for b in batches]
     with ThreadPoolExecutor(max_workers=4) as pool:
@@ -202,6 +202,34 @@ def test_no_hidden_fallback_without_cuda(tmp_path):
     assert "msg=" not in proc.stdout
 
 
+def _entry_points():
+    """Each entry point that decodes on a device, called with `device`
+    (None: its default)."""
+    from msk144cudecoder_tpu_torch.ops import pipeline
+    from msk144cudecoder_tpu_torch.parallel import make_mesh, multihost
+
+    cfg = DecoderConfig(search_width=16.0, scan_depth=1)
+    raw = np.zeros((1, C.WINDOW_LEN), np.int16)
+    return {
+        "StreamDecoder": lambda d: StreamDecoder(cfg) if d is None else StreamDecoder(cfg, d),
+        "decode_raw": lambda d: pipeline.decode_raw(raw, cfg, d),
+        "make_mesh": lambda d: make_mesh(1, None, None if d is None else [d, d]),
+        "local_devices": lambda d: multihost.local_devices(d),
+    }
+
+
+@pytest.mark.parametrize("entry", ["StreamDecoder", "decode_raw", "make_mesh", "local_devices"])
+def test_entry_points_default_to_the_card(monkeypatch, entry):
+    """Without a card each entry point raises by default and for "cuda", and
+    runs on the CPU only when asked for "cpu"."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = _entry_points()[entry]
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call(device)
+    assert call("cpu") is not None
+
+
 def test_kernel_library_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(kernels, "_lib", None)
     monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
@@ -242,8 +270,8 @@ def test_decode_many_equals_decode_block(busy_windows):
     cfg = DecoderConfig(search_width=64.0, scan_depth=6, nbadsync_threshold=3,
                         max_survivors=128, center_frequency=1450.0)
     windows = busy_windows[:4]
-    many = StreamDecoder(cfg).decode_many(windows)
-    one = StreamDecoder(cfg)
+    many = StreamDecoder(cfg, "cpu").decode_many(windows)
+    one = StreamDecoder(cfg, "cpu")
     single = [one.decode_block(w) for w in windows]
     key = [[(r.message, r.f0, r.num_avg, r.nbadsync, r.snr) for r in items] for items in many]
     assert key == [[(r.message, r.f0, r.num_avg, r.nbadsync, r.snr) for r in items]
@@ -254,7 +282,7 @@ def test_decode_many_equals_decode_block(busy_windows):
 def test_overflow_warning_says_at_least(busy_windows, capsys):
     cfg = DecoderConfig(search_width=64.0, scan_depth=6, nbadsync_threshold=3,
                         max_survivors=64, center_frequency=1450.0)
-    dec = StreamDecoder(cfg)
+    dec = StreamDecoder(cfg, "cpu")
     res = dec.decode_to_host(busy_windows[:2])
     dec.postprocess_batch(res, 2)
     err = capsys.readouterr().err
@@ -269,7 +297,7 @@ def test_overflow_warning_exact_without_prefilter(busy_windows, capsys):
     is exact and the warning prints it without "at least"."""
     cfg = DecoderConfig(search_width=64.0, scan_depth=6, nbadsync_threshold=3,
                         max_survivors=64, center_frequency=1450.0, survivor_prefilter=0)
-    dec = StreamDecoder(cfg)
+    dec = StreamDecoder(cfg, "cpu")
     res = dec.decode_to_host(busy_windows[:2])
     dec.postprocess_batch(res, 2)
     err = capsys.readouterr().err
@@ -286,7 +314,7 @@ def test_busy_band_full_demod(busy_windows):
     cfg = DecoderConfig(search_width=200.0, search_step=2.0, scan_depth=6,
                         nbadsync_threshold=3, survivor_prefilter=0, max_survivors=4848)
     assert cfg.num_candidates == 4848
-    dec = StreamDecoder(cfg)
+    dec = StreamDecoder(cfg, "cpu")
     best = {}
     for lo in range(0, len(busy_windows), 2):  # two windows per call bound the memory
         for items in dec.decode_many(busy_windows[lo:lo + 2]):
@@ -301,7 +329,7 @@ def test_busy_band_full_demod(busy_windows):
 
 def test_unpack_cache_is_bounded(monkeypatch):
     monkeypatch.setattr(decoder_mod, "DECODE_CACHE_MAX", 4)
-    dec = StreamDecoder(DecoderConfig(search_width=32.0))
+    dec = StreamDecoder(DecoderConfig(search_width=32.0), "cpu")
     rng = np.random.default_rng(0)
     for _ in range(10):
         dec._unpack_cached(rng.integers(0, 2, C.NUM_MESSAGE_BITS).astype(np.int8))

@@ -61,6 +61,80 @@ def test_scan_kernel_matches_plain(setup, dec):
     assert rel[mism].all()
 
 
+DEEP = dict(search_width=500.0, search_step=1.0, scan_depth=6, nbadsync_threshold=3)
+
+
+def demo_batch(cuda, cfg, n):
+    """A pipeline for cfg on the card and n analytic demo windows (the
+    capture's 26 windows in turn)."""
+    windows = stimulus.stream_windows(np.fromfile(DEMO, dtype=np.int16))
+    raw = torch.from_numpy(np.stack([windows[i % len(windows)] for i in range(n)])).to(cuda)
+    pipe = pipeline.DecodePipeline(cfg).to(cuda)
+    return pipe, pipe.preprocess(raw)
+
+
+@pytest.mark.parametrize("kw,n_win", [
+    (dict(), 64),  # the main path's batch
+    (DEEP, 64),  # the deep scan's batch
+    (dict(), 1),  # one window: one frequency per block
+    (dict(scan_decimation=2), 8),
+    (dict(scan_decimation=1), 8),
+    (dict(scan_depth=8, candidates_per_pattern=5), 16),  # the gap patterns
+    (dict(search_width=12.0), 64),  # F = 7: a ragged last tile
+])
+def test_scan_kernel_main_path_shapes(cuda, kw, n_win):
+    """Kernel B1 against its plain version at the shapes the main path gives
+    it, with the tolerance of test_scan_kernel_matches_plain."""
+    cfg = DecoderConfig(**kw)
+    pipe, c = demo_batch(cuda, cfg, n_win)
+    args = (c, pipe.B, pipe.E_dec, pipe.chi, cfg.scan_depth, cfg.candidates_per_pattern,
+            cfg.scan_decimation)
+    pos_k, xb_k = scan.scan_cuda(*args)
+    pos_p, xb_p = scan.scan_plain(*args)
+    torch.testing.assert_close(xb_k, xb_p, rtol=1e-4, atol=1e-4)
+    assert ((pos_k % cfg.scan_decimation == 0) & (pos_k >= 0) & (pos_k < C.WINDOW_LEN)).all()
+    mism = (pos_k != pos_p).cpu().numpy()
+    untied = [p for p in range(cfg.scan_depth) if p != 5]
+    assert mism[:, :, untied].mean() <= 0.01
+    rel = ((xb_k - xb_p).abs() <= 1e-4 * xb_p.abs()).cpu().numpy()
+    assert rel[mism].all()
+
+
+def test_bp_kernel_on_main_path_rows(cuda):
+    """Kernel B3 on the rows the main path hands it: the selected survivors
+    of 64 demo windows (16,384 rows), every output identical."""
+    pipe, c = demo_batch(cuda, DecoderConfig(), 64)
+    front = pipe.prefilter(*pipe.scan(c))
+    prep = pipe.select(*pipe.demod(c, front), front)
+    llr, valid = prep.llr.reshape(-1, 128).contiguous(), prep.valid.reshape(-1).contiguous()
+    assert llr.shape == (16384, 128)
+    r_k = ldpc.bp_decode_cuda(llr, valid, pipe.ldpc_tables)
+    r_p = ldpc.bp_decode_plain(llr, valid, pipe.ldpc_tables)
+    for f in r_k._fields:
+        assert torch.equal(getattr(r_k, f), getattr(r_p, f)), f
+    assert r_k.found.any()
+
+
+def test_bp_kernel_decodes_at_iteration_0(cuda):
+    """Clean codewords decode before the first update; among noise rows and
+    rows marked invalid, every output stays identical."""
+    rng = np.random.default_rng(2)
+    rows = []
+    for i in range(96):
+        msg = rng.integers(0, 2, 77)
+        cw = ldpc_tables.encode(np.concatenate([msg, (crc.CRC_MATRIX @ msg) % 2]))
+        rows.append((2.0 * cw - 1.0) * 4.0 if i % 3 else rng.normal(0, 2.0, 128))
+    llr = torch.from_numpy(np.stack(rows).astype(np.float32)).to(cuda)
+    valid = torch.arange(96, device=cuda) % 4 != 1
+    lt = pipeline.DecodePipeline(DecoderConfig()).to(cuda).ldpc_tables
+    r_k = ldpc.bp_decode_cuda(llr, valid, lt)
+    r_p = ldpc.bp_decode_plain(llr, valid, lt)
+    for f in r_k._fields:
+        assert torch.equal(getattr(r_k, f), getattr(r_p, f)), f
+    clean = (torch.arange(96, device=cuda) % 3 != 0) & valid
+    assert r_k.found[clean].all() and (r_k.iterations[clean] == 0).all()
+
+
 def test_survivor_kernel_matches_plain(setup):
     _, pipe, c = setup
     _, pos_f, f_idx, p_idx, _ = pipe.prefilter(*pipe.scan(c))

@@ -1,6 +1,7 @@
 """The PyTorch port's BP decode (plain version of kernel B3) against the JAX
 package's ldpc.bp_decode and the Pallas BP kernel in interpret mode, on the
-CPU: found, codeword, iterations and hard_errors identical."""
+CPU: found, codeword, iterations and hard_errors identical; and kernel B3's
+packed parity and CRC masks against the plain version's checks."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -98,6 +99,42 @@ def test_platanh_and_loo_match_jax():
     direct = np.stack([[[np.prod(np.delete(t[r, c], j)) for j in range(11)]
                         for c in range(38)] for r in range(16)])
     np.testing.assert_allclose(loo[:, ev], direct[:, ev], rtol=1e-4, atol=1e-6)
+
+
+def popcount(words: np.ndarray) -> np.ndarray:
+    """Set bits of each int32 word (as its 32-bit pattern)."""
+    return np.unpackbits(words[..., None].view(np.uint8), axis=-1).sum(axis=-1)
+
+
+@pytest.mark.parametrize("kind", ["random words", "codewords", "codewords, one bit flipped"])
+def test_packed_masks_match_plain_checks(kind):
+    """Kernel B3's checks: each parity check and CRC row is the parity of
+    popcount(mask & packed word); the verdicts equal bp_decode_plain's par
+    and crc_ok on the same words."""
+    rng = np.random.default_rng(11)
+    if kind == "random words":
+        cw = rng.integers(0, 2, (512, 128))
+    else:
+        msgs = rng.integers(0, 2, (512, 77))
+        cw = np.stack([T.encode(np.concatenate([m, (crc_mod.CRC_MATRIX @ m) % 2])) for m in msgs])
+        if kind == "codewords, one bit flipped":
+            cw[np.arange(512), rng.integers(0, 128, 512)] ^= 1
+    # bp_decode_plain's verdicts (ops/ldpc.py: par, crc_ok)
+    cwi = torch.from_numpy(cw.astype(np.int32))
+    par = (cwi[:, LT.nm.clamp_min(0).long()] * (LT.nm >= 0)).sum(dim=-1) % 2
+    crc_bits = (cwi[:, None, :77] * LT.crc.to(torch.int32)).sum(dim=-1) % 2
+    crc_ok = (crc_bits == cwi[:, 77:90]).all(dim=-1)
+    # the kernel's: ballot words (bit b of word w is codeword bit 32w + b)
+    words = tables.pack_words(cw.astype(np.uint8))
+    par_k = popcount(LT.check_mask.numpy()[None] & words[:, None, :]).sum(axis=-1) & 1
+    crc_par = popcount(LT.crc_mask.numpy()[None] & words[:, None, :3]).sum(axis=-1) & 1
+    crc_ok_k = (crc_par == cw[:, 77:90]).all(axis=-1)
+    np.testing.assert_array_equal(par_k, par.numpy())
+    np.testing.assert_array_equal(crc_ok_k, crc_ok.numpy())
+    if kind == "codewords":
+        assert not par_k.any() and crc_ok_k.all()
+    else:
+        assert par_k.any() and not crc_ok_k.all()
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

@@ -207,7 +207,7 @@ def summary(res, unpack_cfg, b):
 def test_decode_raw_matches_jax_kernel_branch():
     raw = stimuli()
     cfg = DecoderConfig(**E2E)
-    ours = pipeline.decode_raw(raw, cfg)
+    ours = pipeline.decode_raw(raw, cfg, "cpu")
     ref = jpipeline.decode_raw(jnp.asarray(raw), JaxConfig(use_pallas=True, **E2E))
     expect = [{"CQ K1ABC FN42"}, {"CQ K1ABC FN42"}, set(),
               {"K1ABC W9XYZ EN37", "W9XYZ K1ABC RR73"}]

@@ -1,6 +1,7 @@
 """The PyTorch port's sync scan (plain version of kernel B1) against the JAX
 package's jnp scan, and once against the Pallas scan kernel in interpret
-mode, on the CPU.
+mode, on the CPU; and what surrounds kernel B1: its top-k rank rule against
+the stable sort, and its frequency tiles (shared memory, coverage).
 
 Tolerance: xb rtol 1e-4 / atol 1e-4; every position on the dec grid;
 every position mismatch a near tie (the two xb within 1e-4 relative: the
@@ -78,6 +79,75 @@ def test_candidate_order_and_tie_rules():
     assert pos[0, 0].tolist() == [12, 256 + 28, 256 * 20 + 4, 256 * 2]
     assert top[0, 0].tolist() == [2.0, 2.0, 2.0, 0.0]
     assert pos[1, 0, 0].item() == 256 * 4 + 36
+
+
+def rank_top_k(smax: torch.Tensor, k: int) -> torch.Tensor:
+    """Kernel B1's top-k, written plainly: each slice's rank is the number of
+    slices that beat it (larger value, or equal value and smaller index);
+    the slice of rank r fills slot r."""
+    n = smax.shape[-1]
+    s = torch.arange(n)
+    v, o = smax[..., :, None], smax[..., None, :]
+    rank = ((o > v) | ((o == v) & (s[None, :] < s[:, None]))).sum(dim=-1)
+    order = torch.full(smax.shape[:-1] + (k,), -1, dtype=torch.long)
+    for r in range(k):
+        hit = rank == r
+        assert (hit.sum(dim=-1) == 1).all()  # every rank below 21 is taken once
+        order[..., r] = hit.long().argmax(dim=-1)
+    return order
+
+
+@pytest.mark.parametrize("levels", [None, 3, 1])
+def test_rank_rule_is_the_stable_sort(levels):
+    """The rank rule gives select_candidates' stable descending sort order,
+    with ties planted (values drawn from a few levels, or all equal)."""
+    rng = np.random.default_rng(7 if levels is None else levels)
+    smax = rng.random((64, 6, 21)).astype(np.float32)
+    if levels is not None:
+        smax = np.floor(smax * levels).astype(np.float32)
+    smax = torch.from_numpy(smax)
+    _, order = torch.sort(smax, dim=-1, descending=True, stable=True)
+    for k in (1, 5, 8):
+        assert torch.equal(rank_top_k(smax, k), order[..., :k])
+
+
+@pytest.mark.parametrize("dec", [1, 2, 4])
+def test_scan_tile_shared_memory_fits(dec):
+    """Every tile the wrapper may choose at this dec keeps the block's shared
+    memory within the 48 KB a block may use without an opt-in (the kernel
+    launches without one; the card's opt-in ceiling is 232,448 bytes), at
+    every depth; a tile wider than dec does not fit and is refused."""
+    for n_win in (1, 2, 8, 64, 1000):
+        for F in (1, 7, 101, 501):
+            ft = scan.scan_tile(n_win, F, dec, 132)
+            assert ft in scan.FREQ_TILES and ft <= dec
+            for depth in range(1, 9):
+                assert scan.scan_smem_bytes(ft, dec, depth) <= scan.SMEM_NO_OPT_IN == 49_152
+    for ft in scan.FREQ_TILES:
+        if ft > dec:
+            with pytest.raises(ValueError):
+                scan.scan_smem_bytes(ft, dec, 4)
+
+
+@pytest.mark.parametrize("F", [1, 7, 101, 501])
+def test_scan_tiles_cover_every_cell_once(F):
+    """Kernel B1's blocks (block b: window b // tiles, frequencies from
+    (b % tiles) * tile, the last tile ragged) cover every (window, f)
+    exactly once; a grid that can fill the SMs does, and one window at
+    F = 101 gets a block per frequency."""
+    for n_win in (1, 3, 64):
+        for dec in (1, 2, 4):
+            ft = scan.scan_tile(n_win, F, dec, 132)
+            tiles = -(-F // ft)
+            cells = []
+            for b in range(n_win * tiles):
+                w, f0 = b // tiles, (b % tiles) * ft
+                nf = min(ft, F - f0)
+                assert nf >= 1
+                cells += [(w, f0 + i) for i in range(nf)]
+            assert sorted(cells) == [(w, f) for w in range(n_win) for f in range(F)]
+            assert n_win * tiles >= min(132, n_win * F)
+    assert scan.scan_tile(1, 101, 4, 132) == 1 and scan.scan_tile(64, 101, 4, 132) == 4
 
 
 def test_public_op_dispatch_has_no_fallback(windows):

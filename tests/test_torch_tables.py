@@ -61,6 +61,29 @@ def test_ldpc_tables():
     assert sorted(lt.mn_edge.reshape(-1).tolist()) == sorted(np.nonzero(flat >= 0)[0].tolist())
 
 
+def test_bp_kernel_edge_tables():
+    """Kernel B3's edge tables list the 384 real edges in (check, slot)
+    order: each edge's bit and check, each check's first edge, and each
+    bit's three edges in the order of mn_edge (the order zn sums them)."""
+    lt = tables.ldpc_to_torch("cpu")
+    flat = jldpc.NM.reshape(-1)
+    real = np.nonzero(flat >= 0)[0]  # flat edge 11 * check + slot of each real edge
+    edge = lt.edge.numpy()
+    assert edge.shape == (384,)
+    np.testing.assert_array_equal(edge & 255, flat[real])
+    np.testing.assert_array_equal(edge >> 8, real // jldpc.MAX_ROW_DEGREE)
+    rs = lt.row_start.numpy()
+    for r in range(jldpc.N_CHECKS):
+        np.testing.assert_array_equal(real[rs[r]:rs[r + 1]] // jldpc.MAX_ROW_DEGREE, r)
+    assert rs[0] == 0 and rs[-1] == 384
+    be = lt.bit_edges.numpy()
+    compact = np.stack([be & 511, (be >> 9) & 511, be >> 18], axis=1)
+    np.testing.assert_array_equal(real[compact], lt.mn_edge.numpy())
+    words = tables.pack_words(np.eye(64, dtype=np.uint8))  # bit i of 64 -> word i // 32
+    np.testing.assert_array_equal(words.view(np.uint32)[:, 0][:32], 1 << np.arange(32, dtype=np.uint64))
+    assert (words[32:, 0] == 0).all() and (words[:32, 1] == 0).all()
+
+
 def test_demod_tables():
     dt = tables.demod_to_torch("cpu")
     np.testing.assert_array_equal(dt.sync_conj.numpy(), np.conj(JC.CB42).astype(np.complex64))
