@@ -18,12 +18,14 @@ caught, and any failure exits non-zero.
      the main path's 64 windows (F=101 depth 4 and F=501 depth 6, dec 4),
      at one window, at 8 windows of each, and at dec 1, with the yardstick
      of one complex64 matmul of the correlation stage alone; B2 survivor
-     demod (16 windows x 512 rows, wrap positions and gap patterns); B3 BP
+     demod at the main path's 64 windows x 512 rows (default and deep
+     configs) and at 16 windows with wrap positions and gap patterns; B3 BP
      on the main path's own rows (the selected survivors of 64 demo
      windows, 16,384 rows) and on 4096 rows of planted codewords and noise;
-     B4 full demod (F=101 depth 4 on 8 windows, F=501 depth 6 on 2, depth 8
-     with 5 candidates per pattern on 2; lags planted at the window's wrap
-     points)
+     B4 full demod (the deep scan's 64 windows, held against the plain
+     version 4 windows at a time; F=101 depth 4 on 8 windows, F=501 depth 6
+     on 2, depth 8 with 5 candidates per pattern on 2; lags planted at the
+     window's wrap points)
   3. main path: the CLI on demo/capture.raw on the card decodes the three
      planted messages, with lines identical (but for date=) to --device=cpu;
      an in-process StreamDecoder pass over the demo launches the scan,
@@ -312,42 +314,52 @@ def main() -> int:
         del pos_p, xb_p
     torch.cuda.empty_cache()
 
-    # B2: the main path's survivor rows of 16 windows, with wrap positions
-    # and gap patterns planted in every window
-    cfg = DecoderConfig()
-    pipe, c = windows_on_card(cfg, 16)
-    front = pipe.prefilter(*pipe.scan(c))
-    pos_f, f_idx, p_idx = (t.clone() for t in front[1:4])
-    plant = torch.tensor([5000, 5183, 4321, 3500, 0, 2591, 5180, 4400], dtype=torch.int32)
-    pos_f[:, :8] = plant.to(dev)
-    p_idx[:, :8] = torch.tensor([6, 7, 6, 7, 5, 3, 0, 7], dtype=torch.int32).to(dev)
-    f_idx[:, :8] = torch.tensor([0, 100, 50, 7, 99, 1, 60, 33], dtype=torch.int32).to(dev)
-    dt = pipe.demod_tables
-    sargs = (c, pipe.W, pipe.chi, pos_f, f_idx, p_idx, dt)
-    sb_k, nb_k = survivor.demod_survivors_cuda(*sargs)
-    sb_p, nb_p = survivor.demod_survivors_plain(*sargs)
-    torch.cuda.synchronize()
-    assert torch.equal(nb_k, nb_p), int((nb_k != nb_p).sum())
-    rel = ((sb_k - sb_p).abs() / (sb_p.abs() + 1e-3)).max().item()
-    assert rel < 5e-3, rel
-    assert torch.isfinite(sb_k).all()
-    ms, ms_unq = kernel_times(lambda: survivor.demod_survivors_cuda(*sargs), reps=20)
-    plain_ms = cuda_time(lambda: survivor.demod_survivors_plain(*sargs), reps=5)
-    n_frames = pipe.masks.sum(dim=1)[p_idx.long()]
-    bound_ms, bound_by = bound(
-        flops=float(C.FRAME_LEN * (8 * n_frames + 6).sum().item()) + TAIL_FLOPS * p_idx.numel(),
-        nbytes=tensor_bytes(*sargs[:6], *dt, sb_k, nb_k))
-    name = f"survivor B=16 S={pos_f.shape[1]}"
-    log(f"[B2] {name}: nbadsync equal, max rel {rel:.3g}, kernel {ms:.4f} ms ({ms_unq:.4f} "
-        f"not queued), plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f}  "
-        f"({card})")
-    kernel_rows.append(dict(name="survivor", route="cuda",
-                            source="msk144cudecoder_tpu_torch/csrc/survivor.cu",
-                            replaces="msk144cudecoder_tpu/ops/pallas_survivor.py:229",
-                            max_abs_err=float((sb_k - sb_p).abs().max().item()),
-                            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                            library_ms=None, shape=name))
+    # B2: the main path's survivor rows of 64 windows (default and deep
+    # configs), and of 16 windows with wrap positions and gap patterns
+    # planted in every window
+    for cfg, nw, plant in ((DecoderConfig(), 64, False), (deep, 64, False),
+                           (DecoderConfig(), 16, True)):
+        pipe, c = windows_on_card(cfg, nw)
+        front = pipe.prefilter(*pipe.scan(c))
+        pos_f, f_idx, p_idx = (t.clone() for t in front[1:4])
+        if plant:
+            plant_pos = torch.tensor([5000, 5183, 4321, 3500, 0, 2591, 5180, 4400],
+                                     dtype=torch.int32)
+            pos_f[:, :8] = plant_pos.to(dev)
+            p_idx[:, :8] = torch.tensor([6, 7, 6, 7, 5, 3, 0, 7], dtype=torch.int32).to(dev)
+            f_idx[:, :8] = torch.tensor([0, 100, 50, 7, 99, 1, 60, 33],
+                                        dtype=torch.int32).to(dev)
+        dt = pipe.demod_tables
+        sargs = (c, pipe.W, pipe.chi, pos_f, f_idx, p_idx, dt)
+        sb_k, nb_k = survivor.demod_survivors_cuda(*sargs)
+        sb_p, nb_p = survivor.demod_survivors_plain(*sargs)
+        torch.cuda.synchronize()
+        assert torch.equal(nb_k, nb_p), int((nb_k != nb_p).sum())
+        rel = ((sb_k - sb_p).abs() / (sb_p.abs() + 1e-3)).max().item()
+        assert rel < 5e-3, rel
+        assert torch.isfinite(sb_k).all()
+        ms, ms_unq = kernel_times(lambda: survivor.demod_survivors_cuda(*sargs), reps=20)
+        plain_ms = cuda_time(lambda: survivor.demod_survivors_plain(*sargs), reps=5)
+        n_frames = pipe.masks.sum(dim=1)[p_idx.long()]
+        bound_ms, bound_by = bound(
+            flops=float(C.FRAME_LEN * (8 * n_frames + 6).sum().item())
+            + TAIL_FLOPS * p_idx.numel(),
+            nbytes=tensor_bytes(*sargs[:6], *dt, sb_k, nb_k))
+        name = (f"survivor F={cfg.num_freqs} depth={cfg.scan_depth} B={nw} S={pos_f.shape[1]}"
+                + (" (wrap lags, gap patterns planted)" if plant else ""))
+        log(f"[B2] {name}: nbadsync equal, max rel {rel:.3g}, kernel {ms:.4f} ms ({ms_unq:.4f} "
+            f"not queued), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), share "
+            f"{bound_ms / ms:.3f}, rows per block "
+            f"{survivor.rows_per_block(pos_f.shape[1], nw, kernels.num_sms(dev))}  ({card})")
+        if cfg == DecoderConfig() and nw == 64:
+            kernel_rows.append(dict(name="survivor", route="cuda",
+                                    source="msk144cudecoder_tpu_torch/csrc/survivor.cu",
+                                    replaces="msk144cudecoder_tpu/ops/pallas_survivor.py:229",
+                                    max_abs_err=float((sb_k - sb_p).abs().max().item()),
+                                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                    bound_by=bound_by, library_ms=None, shape=name))
+        del sb_p, nb_p
+    torch.cuda.empty_cache()
 
     # B3: the main path's own rows, the selected survivors of 64 demo
     # windows (16,384 rows); then 4096 rows, half planted codewords + noise,
@@ -392,12 +404,15 @@ def main() -> int:
                                     bound_by=bound_by, library_ms=None, shape=name))
 
     # B4: the full-demod path's grid of every scan candidate, with lags
-    # planted at the window's wrap points in every window. Rule: softbits
-    # within 5e-3 relative (as B2); nbadsync equal on >= 99.99 % of the rows
-    # (noise rows' sync softbits can sit at +-0), and every unequal row has
-    # a plain sync softbit within 1e-3 of 0 before scaling
+    # planted at the window's wrap points in every window; the deep scan's
+    # batch of 64 windows (1,539,072 rows) is held against the plain version
+    # 4 windows at a time (whole, it would hold (64, 501, 6, 5184) complex
+    # sums). Rule: softbits within 5e-3 relative (as B2); nbadsync equal on
+    # >= 99.99 % of the rows (noise rows' sync softbits can sit at +-0), and
+    # every unequal row has a plain sync softbit within 1e-3 of 0 before
+    # scaling
     wraps = torch.tensor([0, 863, 864, 4320, 4321, 5183, 2591, 5000], dtype=torch.int32)
-    for cfg, nw in ((DecoderConfig(), 8), (deep, 2),
+    for cfg, nw in ((deep, 64), (DecoderConfig(), 8), (deep, 2),
                     (DecoderConfig(scan_depth=8, candidates_per_pattern=5), 2)):
         cfg = cfg.replace(survivor_prefilter=0)
         pipe, c = windows_on_card(cfg, nw)
@@ -405,37 +420,52 @@ def main() -> int:
         pos.view(nw, -1)[:, : len(wraps)] = wraps.to(dev)
         dargs = (c, pipe.W, pos, pipe.demod_tables)
         sb_k, nb_k = demod.demod_candidates_cuda(*dargs)
-        sb_p, nb_p = demod.demod_candidates_plain(*dargs)
         torch.cuda.synchronize()
         assert torch.isfinite(sb_k).all()
-        rel = ((sb_k - sb_p).abs() / (sb_p.abs() + 1e-3)).max().item()
-        share, n_mism, near = demod.nbadsync_agreement(*dargs, nb_k, nb_p)
+        chunks = [(c[lo:lo + 4], pipe.W, pos[lo:lo + 4].contiguous(), pipe.demod_tables)
+                  for lo in range(0, nw, 4)]
+        rel, err, n_mism, near = 0.0, 0.0, 0, True
+        for lo, a in zip(range(0, nw, 4), chunks):
+            sb_p, nb_p = demod.demod_candidates_plain(*a)
+            d = (sb_k[lo:lo + 4] - sb_p).abs()
+            rel = max(rel, (d / (sb_p.abs() + 1e-3)).max().item())
+            err = max(err, d.max().item())
+            _, n, ok = demod.nbadsync_agreement(*a, nb_k[lo:lo + 4], nb_p)
+            n_mism, near = n_mism + n, near and ok
+            del sb_p, nb_p, d
+        share = 1.0 - n_mism / nb_k.numel()
         assert rel < 5e-3, rel
         assert share >= 0.9999 and near, (share, n_mism, near)
-        ms, ms_unq = kernel_times(lambda: demod.demod_candidates_cuda(*dargs), reps=20)
-        plain_ms = cuda_time(lambda: demod.demod_candidates_plain(*dargs), reps=3)
-        # per (window, f): the mix, then each pattern's frame sums; per row
-        # the matched-filter tail
-        n_frames = int(pipe.masks[: cfg.scan_depth].sum().item())
+        ms, ms_unq = kernel_times(lambda: demod.demod_candidates_cuda(*dargs),
+                                  reps=5 if nw == 64 else 20)
+
+        def plain_all():
+            for a in chunks:
+                demod.demod_candidates_plain(*a)
+
+        plain_ms = cuda_time(plain_all, reps=1 if nw == 64 else 3, warmup=1)
+        # per (window, f): the mix (6 FLOPs a sample), then one complex add a
+        # sample per pattern (the incremental pattern sums); per row the
+        # matched-filter tail
         bound_ms, bound_by = bound(
-            flops=nw * cfg.num_freqs * C.WINDOW_LEN * (6 + 2 * n_frames)
+            flops=nw * cfg.num_freqs * C.WINDOW_LEN * (6 + 2 * cfg.scan_depth)
             + TAIL_FLOPS * nb_k.numel(),
             nbytes=tensor_bytes(*dargs[:3], *pipe.demod_tables, sb_k, nb_k))
         name = (f"demod F={cfg.num_freqs} depth={cfg.scan_depth} "
                 f"k={cfg.candidates_per_pattern} B={nw} ({nb_k.numel()} rows)")
         log(f"[B4] {name}: max rel {rel:.3g}, nbadsync equal on {share:.6f} of rows "
             f"({n_mism} unequal, all near 0: {near}), kernel {ms:.4f} ms ({ms_unq:.4f} not "
-            f"queued), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), share "
-            f"{bound_ms / ms:.3f}  ({card})")
-        if cfg.num_freqs == 101 and cfg.scan_depth == 4:
+            f"queued), plain {plain_ms:.4f} ms ({len(chunks)} calls of <= 4 windows), bound "
+            f"{bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f}  ({card})")
+        if nw == 64:
             kernel_rows.append(dict(name="demod", route="cuda",
                                     source="msk144cudecoder_tpu_torch/csrc/demod.cu",
                                     replaces="msk144cudecoder_tpu/ops/pallas_demod.py:169",
-                                    max_abs_err=float((sb_k - sb_p).abs().max().item()),
-                                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                    bound_by=bound_by, library_ms=None, shape=name))
-        del sb_p, nb_p, sb_k, nb_k
-    torch.cuda.empty_cache()
+                                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                                    shape=name))
+        del sb_k, nb_k
+        torch.cuda.empty_cache()
 
     # ---- phase 3: main path, then the full-demod path ----------------------
     # each path is driven with the launch counts set to 0 just before it and

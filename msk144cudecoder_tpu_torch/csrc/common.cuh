@@ -34,105 +34,152 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Sum of v over the whole block (every thread must call it); `scratch`
-// holds one float per warp. The result is the same on every thread.
-template <int kThreads>
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
-  constexpr int kWarps = kThreads / 32;
-  v = warp_sum(v);
-  __syncthreads();  // scratch may still be read by a previous call
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float t = 0.f;
-  for (int i = 0; i < kWarps; ++i) t += scratch[i];
-  return t;
-}
-
-constexpr int kSoftbits = 144;  // channel softbits of a frame
-
-// Shared memory of mf_tail: `kThreads` is the block size.
-template <int kThreads>
-struct TailSmem {
-  float sb[kSoftbits];
-  float2 sync_part[2];
-  float scratch[kThreads / 32];
-};
+constexpr int kSoftbits = 144;     // channel softbits of a frame
+constexpr int kSoftbitSlots = 5;   // softbits per lane in warp_tail: t = lane + 32j, j < 5
 
 // The matched-filter tail of kernels B2 and B4 (ops/pallas_demod.py::mf_tail
-// and the tail of softbits.demod). Frame sample l (l < 864) is
-// buf[(start + l) mod len], start in [0, len), so B2 passes its frame
-// (start 0, len 864) and B4 its pattern sum ZA_p at the candidate's lag
-// (len N). Steps: s = sum frame * conj(cb42) over samples [0, 42) and
-// [336, 378); cfac = conj(s)/|s|; the 144 matched-filter softbits of the
-// derotated frame: Q at column 2q from the imaginary part over rows
-// (858 + 12q + i) mod 864, I at column 2q+1 from the real part over rows
-// 12q + i; mean and variance over the 144 give scale = 2/(ssig * 0.36);
-// nbadsync counts the sign mismatches against the sync word at bits 0-7 and
-// 56-63; out come the scaled data softbits [8:56) + [64:144) to
-// sb_out[0..128) and the count to *nbad_out. Every thread of the block
-// calls it with the same arguments (it synchronises the block); it reads
-// buf only before its last barrier, so the caller may overwrite buf once it
-// returns.
-template <int kThreads>
-__device__ __forceinline__ void mf_tail(const float2* buf, int start, int len,
-                                        const float2* __restrict__ sync_conj,
-                                        const float* __restrict__ pp12,
-                                        const int* __restrict__ sync_pm,
-                                        TailSmem<kThreads>& sm, float* __restrict__ sb_out,
-                                        int* __restrict__ nbad_out) {
-  static_assert(kThreads >= kSoftbits && kThreads % 32 == 0, "one thread per softbit");
-  auto at = [&](int l) {
-    const int i = start + l;
-    return buf[i >= len ? i - len : i];
-  };
-
-  // carrier phase: warp 0 sums the first sync region, warp 1 the second
-  const int warp = threadIdx.x >> 5;
+// and the tail of softbits.demod), for one frame on one warp: all 32 lanes
+// call it, and it passes no block barrier. fr[l] is frame sample l, l < 864:
+// B2 passes its frame buffer, B4 its pattern sum ZA_p at the candidate's
+// lag, ZA_p + pos (ZA_p extended by a copy of its first 864 samples, so
+// that (pos + l) mod N needs no wrap).
+//
+// Carrier phase: s = sum_i frame[i] * conj(cb42[i]) + sum_i frame[336 + i] *
+// conj(cb42[i]), i < 42, each region's taps split over the lanes (lane, lane
+// + 32) and reduced by warp_sum; cfac = conj(s) / |s|. Softbits: lane holds
+// t = lane + 32j (j < 5, t < 144; lanes 0-15 five, the rest four). Softbit
+// t = 2q is the Q rail, the imaginary part of the derotated frame
+// frame[r] * cfac over rows r = (858 + 12q + i) mod 864; t = 2q + 1 the I
+// rail, the real part over rows r = 12q + i; each sums its 12 taps in order
+// i = 0..11 with weights pp[i] (pp12, in the caller's registers). Row r is
+// lo + i for taps i < 6 and hi + i for i >= 6: I rail lo = hi = 12q; Q rail
+// lo = hi = 12q - 6, but for q = 0 lo = 858 and hi = -6 (the frame's wrap),
+// so a tap is a load at a fixed offset, two taps per 16-byte load where
+// they are aligned. Mean and variance of the 144: the sum of slot j over the warp,
+// added in ascending j (the order of a block sum over warps of 32
+// consecutive softbits), so scale = 2 / (ssig * 0.36) is the block-wide
+// tail's to the bit. nbadsync: sign mismatches against the sync word at bits
+// 0-7 (lanes 0-7, slot 0) and 56-63 (lanes 24-31, slot 1), by ballot and
+// popcount. Out come the scaled data softbits [8:56) + [64:144), regrouped
+// through `stage` (144 floats of shared memory, 16-byte aligned, the warp's
+// own) as one coalesced 512-byte row, a float4 per lane, to sb_out[0..128),
+// and the count to *nbad_out.
+__device__ __forceinline__ void warp_tail(const float2* fr, const float2* __restrict__ sync_conj,
+                                          const float (&pp)[12],
+                                          const int* __restrict__ sync_pm, float* stage,
+                                          float* __restrict__ sb_out, int* __restrict__ nbad_out) {
   const int lane = threadIdx.x & 31;
-  if (warp < 2) {
-    const int base = warp == 0 ? 0 : kSecondSync;
-    float2 v = make_float2(0.f, 0.f);
-    for (int i = lane; i < kSyncTaps; i += 32) v = cadd(v, cmul(at(base + i), sync_conj[i]));
-    v.x = warp_sum(v.x);
-    v.y = warp_sum(v.y);
-    if (lane == 0) sm.sync_part[warp] = v;
+
+  float2 s1 = make_float2(0.f, 0.f);
+  float2 s2 = make_float2(0.f, 0.f);
+  for (int i = lane; i < kSyncTaps; i += 32) {
+    const float2 sc = sync_conj[i];
+    s1 = cadd(s1, cmul(fr[i], sc));
+    s2 = cadd(s2, cmul(fr[kSecondSync + i], sc));
   }
-  __syncthreads();
-  const float2 s = cadd(sm.sync_part[0], sm.sync_part[1]);
+  s1.x = warp_sum(s1.x);
+  s1.y = warp_sum(s1.y);
+  s2.x = warp_sum(s2.x);
+  s2.y = warp_sum(s2.y);
+  const float2 s = cadd(s1, s2);
   const float inv = 1.f / fmaxf(sqrtf(s.x * s.x + s.y * s.y), 1e-30f);
   const float cre = s.x * inv;  // cfac = conj(s) / |s|
   const float cim = -s.y * inv;
 
-  float v = 0.f;
-  if (threadIdx.x < kSoftbits) {
-    const int q = threadIdx.x >> 1;
+  // A lane's softbits are all on one rail (t and lane have one parity):
+  // Q = z.x * cim + z.y * cre, I = z.x * cre + z.y * (-cim)
+  const bool q_rail = (lane & 1) == 0;
+  const float ca = q_rail ? cim : cre;
+  const float cb = q_rail ? cre : -cim;
+  // tap i of all of a lane's softbits at once (five independent sums), two
+  // taps (16 bytes) per load where they are aligned; each softbit still adds
+  // its taps in order i = 0..11
+  int lo[kSoftbitSlots], hi[kSoftbitSlots];
+  float v[kSoftbitSlots];
+#pragma unroll
+  for (int j = 0; j < kSoftbitSlots; ++j) {
+    const int q = (lane + 32 * j) >> 1;
+    hi[j] = q_rail ? 12 * q - 6 : 12 * q;
+    lo[j] = q_rail && q == 0 ? kFrameLen - 6 : hi[j];
+    v[j] = 0.f;
+  }
+  const int slots = lane + 32 * (kSoftbitSlots - 1) < kSoftbits ? 5 : 4;  // lanes 0-15: 5
+  auto tap = [&](int j, int i, float2 z) { v[j] += (z.x * ca + z.y * cb) * pp[i]; };
+  auto pair = [&](int j, int i) {  // taps i, i + 1 (same side of 6) by one 16-byte load
+    const float4 w = *reinterpret_cast<const float4*>(fr + (i < 6 ? lo[j] : hi[j]) + i);
+    tap(j, i, make_float2(w.x, w.y));
+    tap(j, i + 1, make_float2(w.z, w.w));
+  };
+  auto single = [&](int j, int i) { tap(j, i, fr[(i < 6 ? lo[j] : hi[j]) + i]); };
+  // lo and hi are even: fr's parity decides which taps pair up
+  if ((reinterpret_cast<uintptr_t>(fr) & 8u) == 0) {
+#pragma unroll
+    for (int i = 0; i < 12; i += 2) {
+#pragma unroll
+      for (int j = 0; j < kSoftbitSlots; ++j)
+        if (j < slots) pair(j, i);
+    }
+  } else {  // taps 0, 5, 6 and 11 alone, (1, 2), (3, 4), (7, 8), (9, 10) in pairs
+#pragma unroll
     for (int i = 0; i < 12; ++i) {
-      if ((threadIdx.x & 1) == 0) {  // Q rail: imag of the derotated frame
-        const float2 z = at((858 + 12 * q + i) % kFrameLen);
-        v += (z.x * cim + z.y * cre) * pp12[i];
-      } else {  // I rail: real part
-        const float2 z = at(12 * q + i);
-        v += (z.x * cre - z.y * cim) * pp12[i];
+      if (i == 2 || i == 4 || i == 8 || i == 10) continue;
+#pragma unroll
+      for (int j = 0; j < kSoftbitSlots; ++j) {
+        if (j >= slots) continue;
+        if (i == 0 || i == 5 || i == 6 || i == 11)
+          single(j, i);
+        else
+          pair(j, i);
       }
     }
-    sm.sb[threadIdx.x] = v;
   }
-  const float sav = block_sum<kThreads>(v, sm.scratch) / static_cast<float>(kSoftbits);
-  const float s2av = block_sum<kThreads>(v * v, sm.scratch) / static_cast<float>(kSoftbits);
+
+  float sum = 0.f, sum2 = 0.f;
+#pragma unroll
+  for (int j = 0; j < kSoftbitSlots; ++j) {
+    sum += warp_sum(v[j]);
+    sum2 += warp_sum(v[j] * v[j]);
+  }
+  const float sav = sum / static_cast<float>(kSoftbits);
+  const float s2av = sum2 / static_cast<float>(kSoftbits);
   const float ssig = sqrtf(fmaxf(s2av - sav * sav, 1e-30f));
   const float scale = 2.f / (ssig * 0.36f);  // 2 / (ssig * sigma^2), sigma = 0.6
 
-  // each thread reads back only its own softbit sb[t]
-  const int t = threadIdx.x;
-  bool bad = false;
-  if (t < 8 || (t >= 56 && t < 64)) {
-    const int hard = sm.sb[t] < 0.f ? -1 : 1;
-    bad = hard != sync_pm[t & 7];
-  }
-  const int nbad = __syncthreads_count(bad);
-  if (t >= 8 && t < 56) sb_out[t - 8] = scale * sm.sb[t];
-  if (t >= 64 && t < kSoftbits) sb_out[t - 16] = scale * sm.sb[t];
-  if (t == 0) *nbad_out = nbad;
+  const bool bad = (lane < 8 && (v[0] < 0.f ? -1 : 1) != sync_pm[lane]) ||
+                   (lane >= 24 && (v[1] < 0.f ? -1 : 1) != sync_pm[lane & 7]);
+  const int nbad = __popc(__ballot_sync(0xffffffffu, bad));
+
+  // output o = 4 * lane + e is softbit o + 8 (o < 48) or o + 16: the
+  // softbits pass through the warp's 144 floats of shared memory
+#pragma unroll
+  for (int j = 0; j < kSoftbitSlots; ++j)
+    if (lane + 32 * j < kSoftbits) stage[lane + 32 * j] = v[j];
+  __syncwarp();
+  const float4 w = *reinterpret_cast<const float4*>(stage + 4 * lane + (lane < 12 ? 8 : 16));
+  __syncwarp();  // read before the warp's next tail writes stage
+  reinterpret_cast<float4*>(sb_out)[lane] =
+      make_float4(scale * w.x, scale * w.y, scale * w.z, scale * w.w);
+  if (lane == 0) *nbad_out = nbad;
+}
+
+// Asynchronous 8-byte copy from global to shared memory (cp.async, L1
+// cached); cp_async_wait_all waits for this thread's copies.
+__device__ __forceinline__ void cp_async8(void* smem_dst, const void* src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The output of a row that can never survive (an index outside the tables):
+// 128 zero softbits and nbadsync 17, by one warp.
+__device__ __forceinline__ void warp_reject(float* __restrict__ sb_out,
+                                            int* __restrict__ nbad_out) {
+  const int lane = threadIdx.x & 31;
+  reinterpret_cast<float4*>(sb_out)[lane] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (lane == 0) *nbad_out = 17;
 }
 
 }  // namespace msk

@@ -4,26 +4,43 @@
 // by demod_pallas) and its tail mf_tail. Same result as the plain torch
 // version softbits.demod_candidates (ops/demod.py, demod_candidates_plain).
 //
-// One block per (window b, frequency f), all B*F blocks in one launch:
+// One block of 9 warps per (window b, frequency f), all B*F blocks in one
+// launch:
 //   z[t]    = c[t] * W[f, t]                                   t < N
 //   ZA_p[t] = sum_{m ascending, mask_p[m]} z[(t + 864m) mod N]  per pattern p
-// z and ZA_p live in shared memory (2 x 41.5 KB, dynamic). For each pattern
-// the block builds ZA_p once and runs its k candidates one after another
-// through the matched-filter tail msk::mf_tail (common.cuh, shared with
-// kernel B2), which reads candidate j's frame as ZA_p[(pos + l) mod N],
-// l < 864. The sums run in the order of softbits.pattern_average (the
-// prefix sums of patterns 0-5 add the frames in ascending m, as do the gap
-// patterns 6 = {0, 3} and 7 = {0, 3, 4}), so ZA_p matches the plain version
-// up to the rounding of the products.
+// z lives in registers by columns: thread j holds z at col + 864m (m < 6)
+// for its columns col = j, j + 288, j + 576, so the window and W[f] are read
+// once per block, and ZA_p at col + 864r is the sum of z[col + 864((r + m)
+// mod 6)] over the pattern's frames m. ZA_p lives in shared memory (with a
+// copy of its first 864 samples after it, so that a frame at any lag reads
+// without a wrap) and is built incrementally, in the order of
+// softbits.pattern_average: where pattern p holds every frame of pattern
+// p - 1 and its new frames all come after them (the prefix patterns 1-5, and
+// 7 = 6 + {4}), ZA_p = ZA_{p-1} + its new frames, in place; otherwise (0, and
+// 6 = {0, 3}) ZA_p is summed from 0. Either way the frames are added in
+// ascending m, so ZA_p is bit for bit the plain ascending-m sum (0 + z = z
+// exactly): one add per sample per new frame, not up to six per pattern. The
+// plan comes from the masks, so any table of patterns sums right. Then the
+// k <= 8 candidates of the pattern run at once, one warp each, through the
+// warp-level matched-filter tail msk::warp_tail (common.cuh, shared with
+// kernel B2) on ZA_p + pos.
 //
-// What bounds it on the H100: the window and W[f] are read once per block
-// (83 KB, from L2 for all but the first frequency of a window), the pattern
-// sums are at most 6 shared-memory adds per sample, and the P*k tails of a
-// block run in sequence, each a handful of block barriers: latency, not
-// bytes or FLOPs. The design mixes once per frequency and averages once per
-// (frequency, pattern), as the Pallas kernel does, but without its one-hot
-// extraction matmuls, lane-roll shifts or bf16 splits: a GPU gathers from
-// shared memory directly.
+// What bounds it on the H100: not bytes or FLOPs (the softbits it writes,
+// 512 bytes a row, are the largest traffic) but latency: each tail is a
+// chain of dependent shared-memory loads and warp shuffles, and the pattern
+// sums need two block barriers per pattern (the update waits for the
+// previous pattern's tails). The first port ran the P*k tails of a block one
+// after another, each on the whole block with six barriers (48 x 6 at the
+// deep scan) and 144 of 256 threads busy, and rebuilt each pattern sum from
+// up to six frames in shared memory beside z (83 KB, 2 blocks per SM). Here
+// a pattern's tails run side by side, the update is a few register adds per
+// sample, and the block holds only ZA and the tails' output staging (52 KB):
+// three blocks (27 warps, 24 tails at once) per SM, the register budget that
+// fits them capped by __launch_bounds__. Measured slower on the H100: z
+// recomputed from L2 at each update (W[f] then crosses L2 six times per
+// block), z in shared memory beside ZA (2 blocks per SM), two ZA buffers with
+// one barrier per pattern (2 blocks per SM), four blocks per SM (register
+// spills), and the taps' weights in __constant__ memory.
 
 #include "common.cuh"
 
@@ -31,66 +48,121 @@ namespace {
 
 using namespace msk;
 
-constexpr int kThreads = 256;
-constexpr int kSmemBytes = 2 * kWindowLen * static_cast<int>(sizeof(float2));
+// ZA_p and a copy of its first 864 samples after it: 48,384 bytes
+constexpr int kSumLen = kWindowLen + kFrameLen;
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ unsigned pattern_bits(const int* __restrict__ masks, int p) {
+  unsigned want = 0;
+#pragma unroll
+  for (int m = 0; m < kFrames; ++m) want |= (masks[p * kFrames + m] != 0 ? 1u : 0u) << m;
+  return want;
+}
+
+// The frames pattern `want` adds to the held sum: when the held frames are a
+// subset of want and every new frame comes after the last held one, the new
+// ones (extend = true); else all of want, summed from 0.
+__device__ __forceinline__ unsigned frames_to_add(unsigned held, unsigned want, bool& extend) {
+  const unsigned fresh = want & ~held;
+  extend = held != 0 && (held & ~want) == 0 && (fresh & ((2u << (31 - __clz(held))) - 1u)) == 0;
+  return extend ? fresh : want;
+}
+
+__device__ __forceinline__ float2 add_rn(float2 a, float2 b) {
+  return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
+}
+
+constexpr int kThreads = 288;  // thread j holds columns j, j + 288, j + 576
+constexpr int kWarps = kThreads / 32;
+constexpr int kCols = kFrameLen / kThreads;
+
+__global__ void __launch_bounds__(kThreads, 3)
 demod_kernel(const float2* __restrict__ c, const float2* __restrict__ W,
              const int* __restrict__ pos, const float2* __restrict__ sync_conj,
              const float* __restrict__ pp12, const int* __restrict__ masks,
              const int* __restrict__ sync_pm, float* __restrict__ sb_out,
              int* __restrict__ nbad_out, int F, int P, int K) {
-  extern __shared__ float2 smem[];
-  float2* z = smem;                 // the mixed window
-  float2* za = smem + kWindowLen;   // the current pattern's sum
-  __shared__ TailSmem<kThreads> tail;
+  extern __shared__ float4 smem4[];
+  float2* const za = reinterpret_cast<float2*>(smem4);  // ZA_p, za[N + l] = za[l], l < 864
 
   const int cell = blockIdx.x;  // b * F + f
   const int b = cell / F;
   const int f = cell - b * F;
+  const int warp = threadIdx.x >> 5;
   const float2* cw = c + static_cast<size_t>(b) * kWindowLen;
   const float2* Wf = W + static_cast<size_t>(f) * kWindowLen;
-  for (int t = threadIdx.x; t < kWindowLen; t += kThreads) z[t] = cmul(cw[t], Wf[t]);
+  float2 zc[kCols][kFrames];
+#pragma unroll
+  for (int k = 0; k < kCols; ++k) {
+#pragma unroll
+    for (int m = 0; m < kFrames; ++m) {
+      const int i = threadIdx.x + kThreads * k + kFrameLen * m;
+      zc[k][m] = cmul(cw[i], Wf[i]);
+    }
+  }
+  float pp[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) pp[i] = pp12[i];
+  float* stage = reinterpret_cast<float*>(za + kSumLen) + warp * kSoftbits;  // the tail's
 
+  unsigned held = 0;
   for (int p = 0; p < P; ++p) {
-    __syncthreads();  // z written, or the previous pattern's tails done with za
-    for (int t = threadIdx.x; t < kWindowLen; t += kThreads) {
-      float2 acc = make_float2(0.f, 0.f);
+    const unsigned want = pattern_bits(masks, p);
+    bool extend;
+    const unsigned add = frames_to_add(held, want, extend);
+    held = want;
+
+    __syncthreads();  // the previous pattern's tails are done with za
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) {
+      const int col = threadIdx.x + kThreads * k;
+      float2 acc[kFrames];
+#pragma unroll
+      for (int r = 0; r < kFrames; ++r)
+        acc[r] = extend ? za[col + kFrameLen * r] : make_float2(0.f, 0.f);
+#pragma unroll
       for (int m = 0; m < kFrames; ++m) {
-        if (!masks[p * kFrames + m]) continue;
-        int i = t + kFrameLen * m;
-        if (i >= kWindowLen) i -= kWindowLen;
-        acc = cadd(acc, z[i]);
+        if (!(add >> m & 1u)) continue;
+#pragma unroll
+        for (int r = 0; r < kFrames; ++r) acc[r] = add_rn(acc[r], zc[k][(r + m) % kFrames]);
       }
-      za[t] = acc;
+#pragma unroll
+      for (int r = 0; r < kFrames; ++r) za[col + kFrameLen * r] = acc[r];
+      za[kWindowLen + col] = acc[0];
     }
     __syncthreads();
-    for (int j = 0; j < K; ++j) {
+
+    for (int j = warp; j < K; j += kWarps) {
       const size_t row = (static_cast<size_t>(cell) * P + p) * K + j;
       const int ps = pos[row];
       if (ps < 0 || ps >= kWindowLen) {
         // a lag outside the window: no read, the row can never survive
-        if (threadIdx.x < 128) sb_out[row * 128 + threadIdx.x] = 0.f;
-        if (threadIdx.x == 0) nbad_out[row] = 17;
+        warp_reject(sb_out + row * 128, nbad_out + row);
         continue;
       }
-      mf_tail<kThreads>(za, ps, kWindowLen, sync_conj, pp12, sync_pm, tail,
-                        sb_out + row * 128, nbad_out + row);
+      warp_tail(za + ps, sync_conj, pp, sync_pm, stage, sb_out + row * 128, nbad_out + row);
     }
   }
 }
 
+// ZA_p with its copy, then the tails' output staging
+constexpr int kSmemBytes = kSumLen * sizeof(float2) + kWarps * kSoftbits * sizeof(float);
+
 }  // namespace
 
 // Plain C interface (ctypes). Launches on `stream`; returns the first CUDA
-// error of the shared-memory opt-in or the launch.
+// error of the shared-memory attributes or the launch.
 extern "C" int msk_demod(const void* c, const void* W, const void* pos, const void* sync_conj,
                          const void* pp12, const void* masks, const void* sync_pm,
                          void* sb_out, void* nbad_out, int n_win, int F, int P, int K,
                          void* stream) {
   if (n_win <= 0 || F <= 0 || P <= 0 || K <= 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(demod_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kSmemBytes);
+  // the most shared memory per SM, so that three blocks fit
+  cudaError_t err = cudaFuncSetAttribute(demod_kernel,
+                                         cudaFuncAttributePreferredSharedMemoryCarveout,
+                                         cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(demod_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   demod_kernel<<<n_win * F, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(c), static_cast<const float2*>(W),

@@ -32,7 +32,7 @@ __all__ = ["demod_candidates", "demod_candidates_cuda", "demod_candidates_plain"
 def demod_candidates_cuda(c: torch.Tensor, W: torch.Tensor, pos: torch.Tensor,
                           dt: DemodTables) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel B4 (csrc/demod.cu): one block per (window, frequency), all
-    B * F blocks in one launch. c (B, N) complex64; W (F, N) complex64; pos
+    B * F blocks in one launch, a pattern's candidates on a warp each. c (B, N) complex64; W (F, N) complex64; pos
     (B, F, P, k) int32 with P <= 8 and k <= 8, all contiguous on one CUDA
     device. Returns (softbits (B, F, P, k, 128) float32, nbadsync
     (B, F, P, k) int32)."""

@@ -48,8 +48,8 @@ SIGNATURES = {
     # freq_tile, stream
     "msk_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # c, W, chi, pos, f_idx, p_idx, sync_conj, pp12, masks, sync_pm, sb_out,
-    # nbad_out, n_win, S, F, stream
-    "msk_survivor": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # nbad_out, n_win, S, F, rows_per_block, stream
+    "msk_survivor": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # c, W, pos, sync_conj, pp12, masks, sync_pm, sb_out, nbad_out, n_win, F,
     # depth, num_cand, stream
     "msk_demod": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -6,8 +6,8 @@ carrier-phase estimate over both 42-sample sync regions, derotation, the
 normalisation by 2/(ssig * sigma^2), the 128 data softbits and the nbadsync
 sync-quality count. The matched filter is an index gather over the taps
 instead of the JAX package's (864, 72) tap matrices. The survivor demod
-(ops/survivor.py) feeds it; kernel B2 (csrc/survivor.cu) computes the same
-tail in the block.
+(ops/survivor.py) feeds it; kernels B2 and B4 (csrc/survivor.cu, csrc/demod.cu)
+compute the same tail on one warp per frame (csrc/common.cuh warp_tail).
 
 `demod_candidates` is the full demod of every scan candidate, batched over
 windows: mix each window down once per frequency (`mix_all`), sum the

@@ -78,12 +78,27 @@ def demod_survivors_plain(c: torch.Tensor, W: torch.Tensor, chi: torch.Tensor,
     return demod(frame, dt)
 
 
+WARPS_PER_BLOCK = 8
+
+
+def rows_per_block(S: int, n_win: int, sms: int) -> int:
+    """Rows per block of kernel B2 for n_win windows of S rows. A block
+    stages its window once and runs its rows on min(rows, 8) warps: the most
+    of 32, 16 and 8 rows, no more than S, whose grid of n_win * ceil(S /
+    rows) blocks still gives every SM one, else min(S, 8)."""
+    for rows in (32, 16, 8):
+        if rows <= S and n_win * -(-S // rows) >= sms:
+            return rows
+    return min(S, WARPS_PER_BLOCK)
+
+
 def demod_survivors_cuda(c: torch.Tensor, W: torch.Tensor, chi: torch.Tensor,
                          pos: torch.Tensor, f_idx: torch.Tensor,
                          p_idx: torch.Tensor, dt: DemodTables
                          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Kernel B2 (csrc/survivor.cu): one block per survivor row, B * S rows
-    in one launch. c (B, N) complex64; W (F, N) complex64; chi (F,)
+    """Kernel B2 (csrc/survivor.cu): one warp per survivor row, blocks of
+    rows_per_block rows of one window on up to 8 warps, B * S rows in one
+    launch. c (B, N) complex64; W (F, N) complex64; chi (F,)
     complex64; pos/f_idx/p_idx (B, S) int32, all contiguous on one CUDA
     device."""
     nw = c.shape[0] if c.dim() == 2 else -1
@@ -110,6 +125,7 @@ def demod_survivors_cuda(c: torch.Tensor, W: torch.Tensor, chi: torch.Tensor,
                                   dt.sync_conj.data_ptr(), dt.pp12.data_ptr(),
                                   dt.masks.data_ptr(), dt.sync_pm.data_ptr(),
                                   sb.data_ptr(), nbad.data_ptr(), nw, S, F,
+                                  rows_per_block(S, nw, kernels.num_sms(c.device)),
                                   kernels.stream_ptr(c.device))
         kernels.raise_on_error("msk_survivor", rc)
         kernels.count_launch(demod_survivors_cuda)

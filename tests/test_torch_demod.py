@@ -136,3 +136,17 @@ def test_kernel_wrapper_refuses_cpu_tensors(windows, tabs):
     with pytest.raises(ValueError, match="CUDA tensor"):
         demod.demod_candidates_cuda(torch.from_numpy(windows), W, pos, dt)
     assert "demod" in kernels.launch_counts()
+
+
+def test_pattern_average_is_the_ascending_frame_sum(windows, tabs):
+    """Kernel B4 builds each pattern sum incrementally (the prefix patterns
+    from the previous sum, 7 from 6) in the order of pattern_average; every
+    pattern equals, bit for bit, its frames summed from 0 in ascending m."""
+    W, dt = tabs
+    z = softbits.mix_all(torch.from_numpy(windows), W)
+    za = softbits.pattern_average(z, 8)
+    for p, mask in enumerate(dt.masks.tolist()):
+        acc = torch.zeros_like(z)
+        for m in np.nonzero(mask)[0]:
+            acc = acc + torch.roll(z, -864 * int(m), dims=-1)
+        assert torch.equal(za[:, :, p], acc), p

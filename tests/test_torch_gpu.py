@@ -135,36 +135,77 @@ def test_bp_kernel_decodes_at_iteration_0(cuda):
     assert r_k.found[clean].all() and (r_k.iterations[clean] == 0).all()
 
 
-def test_survivor_kernel_matches_plain(setup):
+SURVIVOR_CASES = {
+    "prefilter rows": {},
+    "S=1": dict(S=1),  # one row per window: one-warp blocks
+    "S=37": dict(S=37),  # a ragged last block
+    "S=512 wrap lags": dict(S=512, lags=[0, 863, 864, 4320, 5183]),
+    "out of range": dict(bad=True),
+}
+
+
+@pytest.mark.parametrize("case", list(SURVIVOR_CASES))
+def test_survivor_kernel_matches_plain(setup, case):
+    """Kernel B2 on the prefilter's rows, every pattern 0-7 planted: S that
+    is no multiple of the rows per block, lags at the window's wrap points,
+    and rows whose pos, f or p lies outside the tables (128 zeros and
+    nbadsync 17). nbadsync identical, softbits within 5e-3 relative."""
+    kw = SURVIVOR_CASES[case]
     _, pipe, c = setup
-    _, pos_f, f_idx, p_idx, _ = pipe.prefilter(*pipe.scan(c))
-    p_idx = p_idx.clone()
-    p_idx[:, :16] = torch.arange(16, device=c.device, dtype=torch.int32) % 8  # gap patterns
+    _, pos_f, f_idx, p_idx = (t.clone() for t in pipe.prefilter(*pipe.scan(c))[:4])
+    if "S" in kw:  # the first S rows, tiled up where S exceeds the prefilter's
+        rep = -(-kw["S"] // pos_f.shape[1])
+        pos_f, f_idx, p_idx = (t.repeat(1, rep)[:, : kw["S"]].contiguous()
+                               for t in (pos_f, f_idx, p_idx))
+    S = pos_f.shape[1]
+    p_idx[:, :16] = (torch.arange(16, device=c.device, dtype=torch.int32) % 8)[:S]
+    if "lags" in kw:
+        pos_f[:, : len(kw["lags"])] = torch.tensor(kw["lags"], dtype=torch.int32,
+                                                   device=c.device)
+    bad = torch.zeros_like(pos_f, dtype=torch.bool)
+    if kw.get("bad"):
+        for col, (t, v) in enumerate(((pos_f, -1), (pos_f, C.WINDOW_LEN), (f_idx, -1),
+                                      (f_idx, pipe.W.shape[0]), (p_idx, -1), (p_idx, 8))):
+            t[:, 3 * col] = v
+            bad[:, 3 * col] = True
     args = (c, pipe.W, pipe.chi, pos_f, f_idx, p_idx, pipe.demod_tables)
     sb_k, nb_k = survivor.demod_survivors_cuda(*args)
-    sb_p, nb_p = survivor.demod_survivors_plain(*args)
-    assert torch.equal(nb_k, nb_p)
-    assert ((sb_k - sb_p).abs() / (sb_p.abs() + 1e-3)).max().item() < 5e-3
+    ok = ~bad
+    assert (nb_k[bad] == 17).all() and (sb_k[bad] == 0).all()
+    safe = [torch.where(bad, 0, t) for t in (pos_f, f_idx, p_idx)]
+    sb_p, nb_p = survivor.demod_survivors_plain(*args[:3], *safe, pipe.demod_tables)
+    assert torch.equal(nb_k[ok], nb_p[ok])
+    assert ((sb_k - sb_p).abs() / (sb_p.abs() + 1e-3))[ok].max().item() < 5e-3
 
 
-@pytest.mark.parametrize("depth,k", [(4, 8), (8, 5)])
+@pytest.mark.parametrize("depth,k", [(4, 8), *((8, k) for k in range(1, 9))])
 def test_demod_kernel_matches_plain(setup, depth, k):
     """Kernel B4 on the scan's grid at the default width, with lags planted
-    at the window's wrap points: softbits within 5e-3 relative, nbadsync
-    equal on >= 99.99 % of rows, and every unequal row has a sync softbit
-    within 1e-3 of 0."""
+    at the window's wrap points, at depth 4 and at depth 8 (every pattern,
+    the gap patterns 6 and 7 too) with 1-8 candidates per pattern: softbits
+    within 5e-3 relative, nbadsync equal on >= 99.99 % of rows, and every
+    unequal row has a sync softbit within 1e-3 of 0. Lags outside the window
+    give 128 zeros and nbadsync 17."""
     cfg, _, c = setup
     pipe = pipeline.DecodePipeline(cfg.replace(scan_depth=depth, candidates_per_pattern=k,
                                                survivor_prefilter=0)).to(c.device)
     pos = pipe.scan(c)[0].contiguous()
-    pos.view(pos.shape[0], -1)[:, :6] = torch.tensor([0, 863, 864, 4320, 5183, 2591],
-                                                     dtype=torch.int32, device=c.device)
+    flat = pos.view(pos.shape[0], -1)
+    flat[:, :6] = torch.tensor([0, 863, 864, 4320, 5183, 2591], dtype=torch.int32,
+                               device=c.device)
     args = (c, pipe.W, pos, pipe.demod_tables)
     sb_k, nb_k = demod.demod_candidates_cuda(*args)
     sb_p, nb_p = demod.demod_candidates_plain(*args)
     assert ((sb_k - sb_p).abs() / (sb_p.abs() + 1e-3)).max().item() < 5e-3
     share, _, near = demod.nbadsync_agreement(*args[:3], pipe.demod_tables, nb_k, nb_p)
     assert share >= 0.9999 and near
+    bad = pos.clone()
+    bad.view(pos.shape[0], -1)[:, -2:] = torch.tensor([-1, C.WINDOW_LEN], dtype=torch.int32,
+                                                      device=c.device)
+    sb_b, nb_b = demod.demod_candidates_cuda(c, pipe.W, bad, pipe.demod_tables)
+    rows = (bad != pos)
+    assert (nb_b[rows] == 17).all() and (sb_b[rows] == 0).all()
+    assert torch.equal(nb_b[~rows], nb_k[~rows]) and torch.equal(sb_b[~rows], sb_k[~rows])
 
 
 def test_bp_kernel_matches_plain(setup):

@@ -132,3 +132,23 @@ def test_kernel_wrapper_refuses_cpu_tensors(window, tabs, candidates):
     t = [torch.from_numpy(np.asarray(a, np.int32))[None] for a in candidates]
     with pytest.raises(ValueError, match="CUDA tensor"):
         survivor.demod_survivors_cuda(torch.from_numpy(window)[None], tt.W, tt.chi, *t, dt)
+
+
+@pytest.mark.parametrize("S,n_win,sms,want", [
+    (512, 64, 132, 32),  # the main path's batch: 1024 blocks for 132 SMs
+    (512, 16, 132, 32),  # 256 blocks
+    (512, 4, 132, 8),  # 4 windows: 64 blocks of 32 rows would leave SMs idle
+    (37, 64, 132, 16),  # 32 rows a block: 128 blocks; 16: 192, a ragged last one
+    (37, 64, 16, 32),  # a block of 32 rows and one of 5
+    (1, 64, 132, 1),  # one row per window: one-warp blocks
+    (3, 64, 132, 3),  # no more rows per block than S
+    (512, 1, 132, 8),
+])
+def test_rows_per_block(S, n_win, sms, want):
+    """Kernel B2's rows per block: 32, 16 or 8 (at most S) where the grid
+    still gives every SM a block, else min(S, 8); the grid covers every
+    row."""
+    rows = survivor.rows_per_block(S, n_win, sms)
+    assert rows == want
+    assert 1 <= rows <= S
+    assert -(-S // rows) * rows >= S
