@@ -64,8 +64,17 @@ caught, and any failure exits non-zero.
      `python -m msk144cudecoder_tpu_torch.parallel` as two gloo processes
      on cuda:0: each prints only its own time row's message, rank 0 ends
      with Done
+  9. input paths: IQ input (--read-mode=2, two messages planted around the
+     0 Hz centre) and the FFT Hilbert transform (--analytic-method=1, on the
+     demo) through the CLI on the card decode the planted messages, with
+     lines identical (but for date=) to --device=cpu; each path driven in
+     this process through StreamDecoder launches the scan, survivor and BP
+     kernels
 
-The line before the last is the JSON kernel table (each kernel at the main
+The checks of phases 2, 3 (the CLI lines), 4, 8 (MeshDecoder parity) and 9
+are the on-card battery's (msk144cudecoder_tpu_torch/tools/run_hwtests.py),
+called from here so that the two cannot drift; the battery adds the
+sensitivity sweep and the streaming soak. The line before the last is the JSON kernel table (each kernel at the main
 path's shapes, its launches in the phase-3 pass and per pipeline pass); the
 last line is the JSON device record.
 """
@@ -89,18 +98,10 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent
 HOP_MS = 216.0  # one 2592-sample hop at 12 kS/s: real time per window
 DEVICE = "cuda:0"
-DEMO_MESSAGES = {"CQ K1ABC FN42", "K1ABC W9XYZ EN37", "W9XYZ K1ABC RR73"}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_time(fn, reps: int, warmup: int = 2, queued: bool = False) -> float:
@@ -179,30 +180,6 @@ def bp_bound(llr, valid, res, max_iters: int = 10) -> tuple[int, float, str]:
     return (updates, *bound(flops=updates * 384 * 12, sfu=updates * 384 * 3, nbytes=nbytes))
 
 
-def strip_date(lines: str) -> list[str]:
-    return [re.sub(r"date=\d+;", "date=;", ln) for ln in lines.splitlines()]
-
-
-def run_cli(device: str, stdin_path: pathlib.Path, *flags: str):
-    with open(stdin_path, "rb") as fin:
-        proc = subprocess.run(
-            [sys.executable, "-m", "msk144cudecoder_tpu_torch", f"--device={device}", *flags],
-            stdin=fin, capture_output=True, text=True, cwd=ROOT, timeout=600)
-    assert proc.returncode == 0, (device, proc.returncode, proc.stderr[-3000:])
-    return proc.stdout, proc.stderr
-
-
-def decode_best(decoder, windows: np.ndarray):
-    """message -> lowest (num_avg, nbadsync, f0) over a batch of windows."""
-    best: dict = {}
-    for items in decoder.decode_many(windows):
-        for r in items:
-            key = (r.num_avg, r.nbadsync, r.f0)
-            if r.message not in best or key[:2] < best[r.message][:2]:
-                best[r.message] = key
-    return best
-
-
 def main() -> int:
     import torch
 
@@ -219,18 +196,15 @@ def main() -> int:
     from msk144cudecoder_tpu_torch import stimulus
     from msk144cudecoder_tpu_torch.config import DecoderConfig
     from msk144cudecoder_tpu_torch.ops import demod, kernels, ldpc, pipeline, scan, survivor
-    from msk144cudecoder_tpu_torch.protocol import crc as crc_mod
-    from msk144cudecoder_tpu_torch.protocol import ldpc_tables
     from msk144cudecoder_tpu_torch.runtime import StreamDecoder
+    from msk144cudecoder_tpu_torch.tools import run_hwtests as hw
 
-    card = card_line()
+    card = hw.card_line()
     dev = torch.device(DEVICE)
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
-    nvcc = subprocess.run([kernels.find_nvcc(), "--version"], capture_output=True,
-                          text=True, check=True, timeout=60)
-    log(nvcc.stdout.strip().splitlines()[-1])
+    log(hw.nvcc_version())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     assert "jax" not in sys.modules and "msk144cudecoder_tpu" not in sys.modules
@@ -252,52 +226,24 @@ def main() -> int:
     kernel_rows = []
 
     # ---- phase 2: each kernel against its plain version ---------------------
-    def windows_on_card(cfg, n, noise=True):
-        """A pipeline for cfg and n analytic windows: the demo's in turn, the
-        last quarter noise unless noise is False."""
-        n_noise = n // 4 if noise else 0
-        raws = [demo_windows[i % len(demo_windows)] for i in range(n - n_noise)]
-        raws += [rng.normal(0, 1000, C.WINDOW_LEN).astype(np.int16) for _ in range(n_noise)]
-        pipe = pipeline.DecodePipeline(cfg).to(dev)
-        return pipe, pipe.preprocess(torch.from_numpy(np.stack(raws)).to(dev))
-
-    deep = DecoderConfig(search_width=500.0, search_step=1.0, scan_depth=6,
-                         nbadsync_threshold=3)
-    # the main path's batch of 64 windows (default and deep), one window, and
-    # the earlier small batches
-    scan_cases = [(DecoderConfig(), 64), (deep, 64), (DecoderConfig(), 1),
-                  (DecoderConfig(), 8), (deep, 8), (DecoderConfig(scan_decimation=1), 4)]
-    for cfg, nw in scan_cases:
-        pipe, c = windows_on_card(cfg, nw)
+    # the checks are the battery's (tools/run_hwtests.py), at its shapes
+    for cfg, nw in hw.SCAN_CASES:
+        pipe, c = hw.kernel_windows(cfg, nw, rng, dev)
+        stats, args = hw.check_scan(pipe, c)
         dec, depth, k = cfg.scan_decimation, cfg.scan_depth, cfg.candidates_per_pattern
-        args = (c, pipe.B, pipe.E_dec, pipe.chi, depth, k, dec)
-        pos_k, xb_k = scan.scan_cuda(*args)
-        pos_p, xb_p = scan.scan_plain(*args)
-        torch.cuda.synchronize()
-        pk, pp = pos_k.cpu().numpy(), pos_p.cpu().numpy()
-        xk, xp = xb_k.cpu().numpy(), xb_p.cpu().numpy()
-        np.testing.assert_allclose(xk, xp, rtol=1e-4, atol=1e-4)
-        assert (pk % dec == 0).all() and (pk >= 0).all() and (pk < C.WINDOW_LEN).all()
-        # the all-frames pattern 5 repeats every 864 lags, so its slice
-        # maxima tie by construction: only the near-tie rule holds there
-        mism = pk != pp
-        near = np.abs(xk - xp) <= 1e-4 * np.abs(xp)
-        untied = [p for p in range(depth) if p != 5]
-        agree = 1.0 - float(mism[:, :, untied].mean())
-        assert agree >= 0.99 and bool(near[mism].all()), (agree, int(mism.sum()))
         ms, ms_unq = kernel_times(lambda: scan.scan_cuda(*args), reps=20)
         plain_ms = cuda_time(lambda: scan.scan_plain(*args), reps=3)
         bound_ms, bound_by = scan_bound(nw, cfg.num_freqs, depth, k, dec)
-        name = f"scan F={cfg.num_freqs} depth={depth} dec={dec} B={nw}"
-        log(f"[B1] {name}: pos agree {agree:.4f} (patterns but 5), near ties {int(mism.sum())}, "
-            f"max |dxb| {np.abs(xk - xp).max():.3g}, kernel {ms:.4f} ms ({ms_unq:.4f} not "
-            f"queued), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), share "
-            f"{bound_ms / ms:.3f}  ({card})")
+        name = hw.scan_name(cfg, nw)
+        log(f"[B1] {name}: pos agree {stats['pos_agree_min']:.4f} (least over the patterns "
+            f"but 5), near ties {stats['near_ties']}, max |dxb| {stats['max_abs_err']:.3g}, "
+            f"kernel {ms:.4f} ms ({ms_unq:.4f} not queued), plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f}  ({card})")
         if cfg == DecoderConfig() and nw == 64:
             kernel_rows.append(dict(name="scan", route="cuda",
                                     source="msk144cudecoder_tpu_torch/csrc/scan.cu",
                                     replaces="msk144cudecoder_tpu/ops/pallas_scan.py:139",
-                                    max_abs_err=float(np.abs(xk - xp).max()),
+                                    max_abs_err=stats["max_abs_err"],
                                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                     bound_by=bound_by, library_ms=None, shape=name))
             # a yardstick, not the same function: the correlation stage
@@ -311,95 +257,54 @@ def main() -> int:
             mm_ms = cuda_time(lambda: torch.matmul(hank, pipe.B), reps=20)
             log(f"[B1] yardstick: torch.matmul {tuple(hank.shape)} x {tuple(pipe.B.shape)} "
                 f"complex64 (correlation only) {mm_ms:.4f} ms  ({card})")
-        del pos_p, xb_p
     torch.cuda.empty_cache()
 
     # B2: the main path's survivor rows of 64 windows (default and deep
     # configs), and of 16 windows with wrap positions and gap patterns
     # planted in every window
-    for cfg, nw, plant in ((DecoderConfig(), 64, False), (deep, 64, False),
-                           (DecoderConfig(), 16, True)):
-        pipe, c = windows_on_card(cfg, nw)
-        front = pipe.prefilter(*pipe.scan(c))
-        pos_f, f_idx, p_idx = (t.clone() for t in front[1:4])
-        if plant:
-            plant_pos = torch.tensor([5000, 5183, 4321, 3500, 0, 2591, 5180, 4400],
-                                     dtype=torch.int32)
-            pos_f[:, :8] = plant_pos.to(dev)
-            p_idx[:, :8] = torch.tensor([6, 7, 6, 7, 5, 3, 0, 7], dtype=torch.int32).to(dev)
-            f_idx[:, :8] = torch.tensor([0, 100, 50, 7, 99, 1, 60, 33],
-                                        dtype=torch.int32).to(dev)
-        dt = pipe.demod_tables
-        sargs = (c, pipe.W, pipe.chi, pos_f, f_idx, p_idx, dt)
-        sb_k, nb_k = survivor.demod_survivors_cuda(*sargs)
-        sb_p, nb_p = survivor.demod_survivors_plain(*sargs)
-        torch.cuda.synchronize()
-        assert torch.equal(nb_k, nb_p), int((nb_k != nb_p).sum())
-        rel = ((sb_k - sb_p).abs() / (sb_p.abs() + 1e-3)).max().item()
-        assert rel < 5e-3, rel
-        assert torch.isfinite(sb_k).all()
+    for cfg, nw, plant in hw.SURVIVOR_CASES:
+        pipe, c = hw.kernel_windows(cfg, nw, rng, dev)
+        stats, sargs, (sb_k, nb_k) = hw.check_survivor(pipe, c, plant)
         ms, ms_unq = kernel_times(lambda: survivor.demod_survivors_cuda(*sargs), reps=20)
         plain_ms = cuda_time(lambda: survivor.demod_survivors_plain(*sargs), reps=5)
+        pos_f, p_idx, dt = sargs[3], sargs[5], sargs[6]
         n_frames = pipe.masks.sum(dim=1)[p_idx.long()]
         bound_ms, bound_by = bound(
             flops=float(C.FRAME_LEN * (8 * n_frames + 6).sum().item())
             + TAIL_FLOPS * p_idx.numel(),
             nbytes=tensor_bytes(*sargs[:6], *dt, sb_k, nb_k))
-        name = (f"survivor F={cfg.num_freqs} depth={cfg.scan_depth} B={nw} S={pos_f.shape[1]}"
-                + (" (wrap lags, gap patterns planted)" if plant else ""))
-        log(f"[B2] {name}: nbadsync equal, max rel {rel:.3g}, kernel {ms:.4f} ms ({ms_unq:.4f} "
-            f"not queued), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), share "
-            f"{bound_ms / ms:.3f}, rows per block "
+        name = hw.survivor_name(cfg, nw, pos_f.shape[1], plant)
+        log(f"[B2] {name}: nbadsync equal, max rel {stats['max_rel']:.3g}, kernel {ms:.4f} ms "
+            f"({ms_unq:.4f} not queued), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}), share {bound_ms / ms:.3f}, rows per block "
             f"{survivor.rows_per_block(pos_f.shape[1], nw, kernels.num_sms(dev))}  ({card})")
         if cfg == DecoderConfig() and nw == 64:
             kernel_rows.append(dict(name="survivor", route="cuda",
                                     source="msk144cudecoder_tpu_torch/csrc/survivor.cu",
                                     replaces="msk144cudecoder_tpu/ops/pallas_survivor.py:229",
-                                    max_abs_err=float((sb_k - sb_p).abs().max().item()),
+                                    max_abs_err=stats["max_abs_err"],
                                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                     bound_by=bound_by, library_ms=None, shape=name))
-        del sb_p, nb_p
     torch.cuda.empty_cache()
 
     # B3: the main path's own rows, the selected survivors of 64 demo
     # windows (16,384 rows); then 4096 rows, half planted codewords + noise,
     # a quarter pure noise, a quarter planted but marked invalid
-    pipe, c = windows_on_card(DecoderConfig(), 64, noise=False)
-    front = pipe.prefilter(*pipe.scan(c))
-    prep = pipe.select(*pipe.demod(c, front), front)
-    main_rows = (prep.llr.reshape(-1, C.NUM_DATA_BITS).contiguous(),
-                 prep.valid.reshape(-1).contiguous())
-    rows = []
-    for _ in range(3072):
-        msg = rng.integers(0, 2, 77)
-        cw = ldpc_tables.encode(np.concatenate([msg, (crc_mod.CRC_MATRIX @ msg) % 2]))
-        rows.append((2.0 * cw - 1.0) * rng.uniform(1.5, 4.0) + rng.normal(0, 1.0, 128))
-    rows += [rng.normal(0, 2.0, 128) for _ in range(1024)]
-    planted = (torch.from_numpy(np.stack(rows).astype(np.float32)).to(dev),
-               torch.from_numpy(np.arange(4096) % 4 != 3).to(dev))
-    lt = pipe.ldpc_tables
-    for tag, (llr, valid) in (("main-path rows", main_rows), ("planted rows", planted)):
-        r_k = ldpc.bp_decode_cuda(llr, valid, lt)
-        r_p = ldpc.bp_decode_plain(llr, valid, lt)
-        torch.cuda.synchronize()
-        for f in r_k._fields:
-            assert torch.equal(getattr(r_k, f), getattr(r_p, f)), (tag, f)
-        n_found = int(r_k.found.sum())
-        assert n_found > (1000 if tag == "planted rows" else 0), (tag, n_found)
+    for tag, llr, valid, lt in hw.bp_inputs(rng, dev):
+        stats, r_k = hw.check_bp(tag, llr, valid, lt)
         ms, ms_unq = kernel_times(lambda: ldpc.bp_decode_cuda(llr, valid, lt), reps=20)
         plain_ms = cuda_time(lambda: ldpc.bp_decode_plain(llr, valid, lt), reps=5)
         updates, bound_ms, bound_by = bp_bound(llr, valid, r_k)
         name = f"bp R={llr.shape[0]} ({tag})"
-        log(f"[B3] {name}: found/codeword/iterations/hard_errors identical ({n_found} found, "
-            f"{int(valid.sum())} valid, {updates} row-iterations of updates), kernel "
+        log(f"[B3] {name}: found/codeword/iterations/hard_errors identical ({stats['found']} "
+            f"found, {stats['valid']} valid, {updates} row-iterations of updates), kernel "
             f"{ms:.4f} ms ({ms_unq:.4f} not queued), plain {plain_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f}  ({card})")
         if tag == "main-path rows":
             kernel_rows.append(dict(name="bp", route="cuda",
                                     source="msk144cudecoder_tpu_torch/csrc/bp.cu",
                                     replaces="msk144cudecoder_tpu/ops/pallas_ldpc.py:115",
-                                    max_abs_err=float((r_k.codeword.int() - r_p.codeword.int())
-                                                      .abs().max().item()),
+                                    max_abs_err=stats["max_abs_err"],
                                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                     bound_by=bound_by, library_ms=None, shape=name))
 
@@ -411,31 +316,10 @@ def main() -> int:
     # >= 99.99 % of the rows (noise rows' sync softbits can sit at +-0), and
     # every unequal row has a plain sync softbit within 1e-3 of 0 before
     # scaling
-    wraps = torch.tensor([0, 863, 864, 4320, 4321, 5183, 2591, 5000], dtype=torch.int32)
-    for cfg, nw in ((deep, 64), (DecoderConfig(), 8), (deep, 2),
-                    (DecoderConfig(scan_depth=8, candidates_per_pattern=5), 2)):
+    for cfg, nw in hw.DEMOD_CASES:
         cfg = cfg.replace(survivor_prefilter=0)
-        pipe, c = windows_on_card(cfg, nw)
-        pos = pipe.scan(c)[0].contiguous()
-        pos.view(nw, -1)[:, : len(wraps)] = wraps.to(dev)
-        dargs = (c, pipe.W, pos, pipe.demod_tables)
-        sb_k, nb_k = demod.demod_candidates_cuda(*dargs)
-        torch.cuda.synchronize()
-        assert torch.isfinite(sb_k).all()
-        chunks = [(c[lo:lo + 4], pipe.W, pos[lo:lo + 4].contiguous(), pipe.demod_tables)
-                  for lo in range(0, nw, 4)]
-        rel, err, n_mism, near = 0.0, 0.0, 0, True
-        for lo, a in zip(range(0, nw, 4), chunks):
-            sb_p, nb_p = demod.demod_candidates_plain(*a)
-            d = (sb_k[lo:lo + 4] - sb_p).abs()
-            rel = max(rel, (d / (sb_p.abs() + 1e-3)).max().item())
-            err = max(err, d.max().item())
-            _, n, ok = demod.nbadsync_agreement(*a, nb_k[lo:lo + 4], nb_p)
-            n_mism, near = n_mism + n, near and ok
-            del sb_p, nb_p, d
-        share = 1.0 - n_mism / nb_k.numel()
-        assert rel < 5e-3, rel
-        assert share >= 0.9999 and near, (share, n_mism, near)
+        pipe, c = hw.kernel_windows(cfg, nw, rng, dev)
+        stats, dargs, chunks, (sb_k, nb_k) = hw.check_demod(pipe, c)
         ms, ms_unq = kernel_times(lambda: demod.demod_candidates_cuda(*dargs),
                                   reps=5 if nw == 64 else 20)
 
@@ -451,44 +335,37 @@ def main() -> int:
             flops=nw * cfg.num_freqs * C.WINDOW_LEN * (6 + 2 * cfg.scan_depth)
             + TAIL_FLOPS * nb_k.numel(),
             nbytes=tensor_bytes(*dargs[:3], *pipe.demod_tables, sb_k, nb_k))
-        name = (f"demod F={cfg.num_freqs} depth={cfg.scan_depth} "
-                f"k={cfg.candidates_per_pattern} B={nw} ({nb_k.numel()} rows)")
-        log(f"[B4] {name}: max rel {rel:.3g}, nbadsync equal on {share:.6f} of rows "
-            f"({n_mism} unequal, all near 0: {near}), kernel {ms:.4f} ms ({ms_unq:.4f} not "
+        name = hw.demod_name(cfg, nw, nb_k.numel())
+        log(f"[B4] {name}: max rel {stats['max_rel']:.3g}, nbadsync equal on "
+            f"{stats['nbadsync_equal_share']:.6f} of rows ({stats['nbadsync_unequal']} unequal, "
+            f"all near 0: {stats['unequal_near_zero']}), kernel {ms:.4f} ms ({ms_unq:.4f} not "
             f"queued), plain {plain_ms:.4f} ms ({len(chunks)} calls of <= 4 windows), bound "
             f"{bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f}  ({card})")
         if nw == 64:
             kernel_rows.append(dict(name="demod", route="cuda",
                                     source="msk144cudecoder_tpu_torch/csrc/demod.cu",
                                     replaces="msk144cudecoder_tpu/ops/pallas_demod.py:169",
-                                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                    max_abs_err=stats["max_abs_err"], ms=ms, plain_ms=plain_ms,
                                     bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                                     shape=name))
-        del sb_k, nb_k
+        del sb_k, nb_k, dargs, chunks
         torch.cuda.empty_cache()
 
     # ---- phase 3: main path, then the full-demod path ----------------------
     # each path is driven with the launch counts set to 0 just before it and
     # read just after; a path's kernels must each launch, the other path's not
-    demo_path = ROOT / "demo" / "capture.raw"
-    paths = (("main", (), DecoderConfig(), ("scan", "survivor", "bp"), "Warning: at least"),
+    paths = (("main", (), DecoderConfig(), ("scan", "survivor", "bp")),
              ("full", ("--survivor-prefilter=0",), DecoderConfig(survivor_prefilter=0),
-              ("scan", "demod", "bp"), "Warning: "))
+              ("scan", "demod", "bp")))
     path_counts = {}
-    cli_lines = {}  # tag -> (card, cpu) stdout, for phase 7
-    for tag, flags, cfg, path_kernels, warn in paths:
-        out_gpu, err_gpu = run_cli(DEVICE, demo_path, *flags)
-        out_cpu, _ = run_cli("cpu", demo_path, *flags)
-        cli_lines[tag] = (out_gpu, out_cpu)
-        msgs = {ln.split("msg='")[1].split("'")[0] for ln in out_gpu.splitlines()
-                if "msg='" in ln}
-        assert msgs == DEMO_MESSAGES, (tag, msgs)
-        assert strip_date(out_gpu) == strip_date(out_cpu), (tag, out_gpu, out_cpu)
-        log(f"[{tag}] CLI {' '.join(flags)} on the card: {len(out_gpu.splitlines()) - 1} "
-            f"lines, identical to --device=cpu but for date=; messages {sorted(msgs)}")
-        for ln in err_gpu.splitlines():
-            if ln.startswith(warn):
-                log(f"[{tag}] " + ln)
+    cli_out = {}  # tag -> the card's CLI stdout, for phase 7
+    for tag, flags, cfg, path_kernels in paths:
+        rec = {}
+        cli_out[tag] = hw.demo_cli(rec, *flags)
+        log(f"[{tag}] CLI {' '.join(flags)} on the card: {rec['lines']} lines, identical to "
+            f"--device=cpu and to --window-batch=8 --pipeline-depth=4 on the card, but for "
+            f"date=; messages {rec['messages']}")
+        log(f"[{tag}] {rec['warning']}")
 
         decoder = StreamDecoder(cfg, dev)
         kernels.reset_launch_counts()
@@ -500,7 +377,7 @@ def main() -> int:
                     found.add(item.message)
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
-        assert found == DEMO_MESSAGES, (tag, found)
+        assert found == hw.DEMO_MESSAGES, (tag, found)
         assert all((n > 0) == (k in path_kernels) for k, n in counts.items()), (tag, counts)
         log(f"[{tag}] StreamDecoder pass over {len(demo_windows)} demo windows: "
             f"launches {counts}")
@@ -510,55 +387,26 @@ def main() -> int:
         row["launches_per_pass"] = row["launches"] / len(demo_windows)
 
     # ---- phase 4: busy band -----------------------------------------------
-    bb_cfg = DecoderConfig(search_width=200.0, search_step=2.0, scan_depth=6,
-                           nbadsync_threshold=3, max_survivors=256)
-    bb_windows = stimulus.stream_windows(stimulus.busy_band_audio())
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err):
-        best_gpu = decode_best(StreamDecoder(bb_cfg, dev), bb_windows)
-    with contextlib.redirect_stderr(io.StringIO()):
-        best_cpu = decode_best(StreamDecoder(bb_cfg, "cpu"), bb_windows)
-    want = {p[0] for p in stimulus.BUSY_BAND_PINGS}
-    assert set(best_gpu) == want, best_gpu
-    assert {m: v[:2] for m, v in best_gpu.items()} == {m: v[:2] for m, v in best_cpu.items()}, (
-        best_gpu, best_cpu)
-    assert "sync survivors exceed the LDPC batch" in err.getvalue(), err.getvalue()
-    log(f"[busy] four pings decoded, (num_avg, nbadsync) equal to the CPU run: {best_gpu}; "
-        f"warning: {err.getvalue().splitlines()[0]}")
-
-    # the full demod: every candidate demodulated, so the count is exact
-    full_best = {}
-    for k_surv in (bb_cfg.num_candidates, 256):
-        err = io.StringIO()
-        with contextlib.redirect_stderr(err):
-            full_best[k_surv] = decode_best(
-                StreamDecoder(bb_cfg.replace(survivor_prefilter=0, max_survivors=k_surv), dev),
-                bb_windows)
-        assert set(full_best[k_surv]) == want, (k_surv, full_best[k_surv])
-        if k_surv == 256:
-            warning = err.getvalue()
-            assert "sync survivors exceed the LDPC batch" in warning, warning
-            assert "at least" not in warning, warning
-    for text, f0, *_ in stimulus.BUSY_BAND_PINGS:
-        na, nbad, f_dec = full_best[bb_cfg.num_candidates][text]
-        assert (na, nbad) == (1, 0) and abs(f_dec - f0) <= bb_cfg.search_step, (text, na, nbad, f_dec)
-    assert ({m: v[:2] for m, v in full_best[256].items()}
-            == {m: v[:2] for m, v in full_best[bb_cfg.num_candidates].items()}), full_best
-    log(f"[busy] prefilter 0, K={bb_cfg.num_candidates}: {full_best[bb_cfg.num_candidates]}; "
-        f"K=256: the same (num_avg, nbadsync), warning: {warning.splitlines()[0]}")
+    busy = {}
+    hw.busy_band(busy, dev)
+    log(f"[busy] four pings decoded, (num_avg, nbadsync) equal to the CPU run: "
+        f"{busy['prefilter_k256']}; warning: {busy['prefilter_k256_warning']}")
+    k_all = hw.BUSY.num_candidates
+    log(f"[busy] prefilter 0, K={k_all}: {busy[f'full_k{k_all}']}; K=256: the same "
+        f"(num_avg, nbadsync), warning: {busy['full_k256_warning']}")
 
     # ---- phase 5: deep scan, weak signal -----------------------------------
     weak = stimulus.synthesize_audio_int16([("CQ K1ABC FN42", 1500.0)], 6, snr_db=-4.0,
                                            rng=np.random.default_rng(1000))
     with contextlib.redirect_stderr(io.StringIO()):
-        weak_res = StreamDecoder(deep, dev).decode_block(weak[: C.WINDOW_LEN])
+        weak_res = StreamDecoder(hw.DEEP, dev).decode_block(weak[: C.WINDOW_LEN])
     assert {r.message for r in weak_res} == {"CQ K1ABC FN42"}, weak_res
     log(f"[deep] -4 dB stimulus decodes at width 500 step 1 depth 6: "
         f"{[(r.message, r.num_avg, r.nbadsync, r.f0) for r in weak_res]}")
 
     # ---- phase 6: timing --------------------------------------------------
-    for name, cfg in (("default", DecoderConfig()), ("deep", deep),
-                      ("deep full demod", deep.replace(survivor_prefilter=0))):
+    for name, cfg in (("default", DecoderConfig()), ("deep", hw.DEEP),
+                      ("deep full demod", hw.DEEP.replace(survivor_prefilter=0))):
         pipe = pipeline.DecodePipeline(cfg).to(dev)
         for nb in (1, 64):
             raws = np.stack([demo_windows[i % len(demo_windows)] for i in range(nb)])
@@ -586,8 +434,9 @@ def main() -> int:
         f"{len(lats)} windows: median {np.median(lats):.3f} ms, max {max(lats):.3f} ms, "
         f"of the {C.LOOP_SOFT_BUDGET_MS:g} ms loop budget  ({card})")
 
-    phase7_throughput_cli(paths, cli_lines, demo, demo_windows, card)
-    phase8_sharding(demo_windows, bb_cfg, bb_windows, card)
+    phase7_throughput_cli(paths, cli_out, demo, demo_windows, card)
+    phase8_sharding(demo_windows, card)
+    phase9_inputs()
 
     print(json.dumps({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "launches_per_pass", "max_abs_err",
@@ -603,8 +452,9 @@ DEEP_FLAGS = ("--search-width=500", "--search-step=1", "--scan-depth=6",
 KERNEL_NAMES = ("scan_kernel", "survivor_kernel", "demod_kernel", "bp_kernel")
 
 
-def phase7_throughput_cli(paths, cli_lines, demo, demo_windows, card) -> None:
-    """The pipelined throughput mode, the native framer and --profile-dir."""
+def phase7_throughput_cli(paths, cli_out, demo, demo_windows, card) -> None:
+    """The pipelined throughput mode, the native framer and --profile-dir
+    (the demo's pipelined CLI lines are phase 3's)."""
     import torch
 
     from msk144cudecoder_tpu_torch import cli
@@ -613,20 +463,9 @@ def phase7_throughput_cli(paths, cli_lines, demo, demo_windows, card) -> None:
     from msk144cudecoder_tpu_torch.ops import kernels
     from msk144cudecoder_tpu_torch.runtime import StreamDecoder, native
     from msk144cudecoder_tpu_torch.runtime.stream import window_stream
-
-    deep = DecoderConfig(search_width=500.0, search_step=1.0, scan_depth=6, nbadsync_threshold=3)
+    from msk144cudecoder_tpu_torch.tools import run_hwtests as hw
 
     demo_path = ROOT / "demo" / "capture.raw"
-    for tag, flags, *_ in paths:
-        out_b, err_b = run_cli(DEVICE, demo_path, "--window-batch=8", "--pipeline-depth=4",
-                               *flags)
-        out_gpu, out_cpu = cli_lines[tag]
-        assert strip_date(out_b) == strip_date(out_gpu) == strip_date(out_cpu), (tag, out_b)
-        assert "Throughput:" in err_b, err_b
-        log(f"[cli {tag}] --window-batch=8 --pipeline-depth=4 {' '.join(flags)}: "
-            f"{len(out_b.splitlines()) - 1} lines, equal to --window-batch=1 on the card "
-            "and to --device=cpu")
-
     assert native.available()
     with contextlib.redirect_stderr(io.StringIO()):
         nat = list(native.native_window_stream(io.BytesIO(demo.tobytes()), 1, chunk_bytes=4099))
@@ -639,7 +478,7 @@ def phase7_throughput_cli(paths, cli_lines, demo, demo_windows, card) -> None:
     # the throughput mode in this process, so that its launches are counted:
     # the native framer's windows through cli.decode_throughput, each path
     # driven with the counts set to 0 just before it and read just after
-    for tag, flags, cfg, path_kernels, _ in paths:
+    for tag, flags, cfg, path_kernels in paths:
         decoder = StreamDecoder(cfg, DEVICE)
         out = io.StringIO()
         kernels.reset_launch_counts()
@@ -648,7 +487,7 @@ def phase7_throughput_cli(paths, cli_lines, demo, demo_windows, card) -> None:
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
         assert all((n > 0) == (k in path_kernels) for k, n in counts.items()), (tag, counts)
-        assert strip_date(out.getvalue()) == strip_date(cli_lines[tag][0])[:-1], tag
+        assert hw.strip_date(out.getvalue()) == hw.strip_date(cli_out[tag])[:-1], tag
         log(f"[cli {tag}] decode_throughput in process, B=8 depth 4: the CLI's lines; "
             f"launches {counts}")
 
@@ -659,21 +498,21 @@ def phase7_throughput_cli(paths, cli_lines, demo, demo_windows, card) -> None:
         long_path.write_bytes(long.tobytes())
         long_windows = np.stack([long[i * C.HOP_LEN:i * C.HOP_LEN + C.WINDOW_LEN]
                                  for i in range(n_win)])
-        for name, flags, cfg in (("default", (), DecoderConfig()), ("deep", DEEP_FLAGS, deep)):
+        for name, flags, cfg in (("default", (), DecoderConfig()), ("deep", DEEP_FLAGS, hw.DEEP)):
             outs = []
             for depth in (1, 4, 4, 1):  # in turns
                 t0 = time.perf_counter()
-                out, err = run_cli(DEVICE, long_path, "--window-batch=64",
-                                   f"--pipeline-depth={depth}", *flags)
+                out, err = hw.run_cli(DEVICE, long_path, "--window-batch=64",
+                                      f"--pipeline-depth={depth}", *flags)
                 wall = time.perf_counter() - t0
-                outs.append(strip_date(out))
+                outs.append(hw.strip_date(out))
                 thr = [ln for ln in err.splitlines() if ln.startswith("Throughput:")]
                 assert len(thr) == 1, err[-2000:]
                 log(f"[throughput] {name} B=64 depth {depth}, {n_win} windows: {thr[0]}; "
                     f"whole process {wall:.2f} s  ({card})")
             assert all(o == outs[0] for o in outs), name
             msgs = {ln.split("msg='")[1].split("'")[0] for ln in outs[0] if "msg='" in ln}
-            assert msgs == DEMO_MESSAGES, (name, msgs)
+            assert msgs == hw.DEMO_MESSAGES, (name, msgs)
             log(f"[throughput] {name}: depth 1 and 4 print the same {len(outs[0]) - 1} lines")
             # the CLI's per-batch host work in one thread, split: the device
             # call with its fetch (decode_to_host), then unpack and dedup
@@ -695,36 +534,13 @@ def phase7_throughput_cli(paths, cli_lines, demo, demo_windows, card) -> None:
                 f"{t_post / n * 1e3:.4f} ms/window  ({card})")
 
         prof = pathlib.Path(tmp) / "prof"
-        _, err = run_cli(DEVICE, demo_path, "--window-batch=8", "--pipeline-depth=4",
-                         f"--profile-dir={prof}")
+        _, err = hw.run_cli(DEVICE, demo_path, "--window-batch=8", "--pipeline-depth=4",
+                            f"--profile-dir={prof}")
         assert f"Profiler trace written to {prof}" in err, err[-2000:]
         trace = (prof / "trace.json").read_text()
         named = [k for k in KERNEL_NAMES if k in trace]
         assert named, "the trace names none of the four kernels"
         log(f"[profile] {len(trace)} bytes of trace; kernels named: {named}")
-
-
-def mesh_summary(cfg, freqs, res) -> list[dict]:
-    """Per window: message -> the lowest (num_avg, nbadsync, f0) of its found
-    rows (the row the CLI prints); freqs is the grid the candidate indices
-    refer to."""
-    from msk144cudecoder_tpu_torch import constants as C
-    from msk144cudecoder_tpu_torch.ops import pipeline
-    from msk144cudecoder_tpu_torch.protocol import msg77
-
-    out = []
-    hashes = msg77.CallsignHashTable()
-    for b in range(res.found.shape[0]):
-        best = {}
-        for k in np.nonzero(res.found[b])[0]:
-            ok, text = msg77.unpack77(pipeline.unpack_message_bits(res.message_bits[b][k]),
-                                      hashes)
-            if ok:
-                fi, pi, _ = pipeline.unpack_candidate_index(cfg, int(res.cand_index[b][k]))
-                key = (int(C.PATTERN_NUM_AVG[pi]), int(res.nbadsync[b][k]), float(freqs[fi]))
-                best[text] = min(best.get(text, key), key)
-        out.append(best)
-    return out
 
 
 def free_port() -> int:
@@ -733,7 +549,7 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def phase8_sharding(demo_windows, bb_cfg, bb_windows, card) -> None:
+def phase8_sharding(demo_windows, card) -> None:
     """MeshDecoder on one card against its CPU run, and the two-process
     parallel runner on cuda:0."""
     import torch
@@ -745,41 +561,16 @@ def phase8_sharding(demo_windows, bb_cfg, bb_windows, card) -> None:
     from msk144cudecoder_tpu_torch.parallel import MeshDecoder, make_mesh
     from msk144cudecoder_tpu_torch.parallel import cli as parallel_cli
     from msk144cudecoder_tpu_torch.runtime.decoder import to_host
+    from msk144cudecoder_tpu_torch.tools import run_hwtests as hw
 
     dev = torch.device(DEVICE)
-
-    def chunked(md, windows):
-        """Decode in chunks of 4 windows (memory of the CPU's plain path)."""
-        out = []
-        for lo in range(0, len(windows), 4):
-            out += mesh_summary(md.cfg, md.freqs, md.decode(windows[lo:lo + 4]))
-        return out
-
-    inputs = (("demo", DecoderConfig(), demo_windows), ("busy", bb_cfg, bb_windows))
-    for (n_time, n_freq) in ((1, 4), (2, 2)):
-        for name, base, windows in inputs:
-            for pre in (None, 0):
-                cfg = base.replace(survivor_prefilter=pre)
-                n = n_time * n_freq
-                md_gpu = MeshDecoder(cfg, make_mesh(n_time, n_freq, [dev] * n))
-                kernels.reset_launch_counts()
-                got = chunked(md_gpu, windows)
-                torch.cuda.synchronize()
-                counts = kernels.launch_counts()
-                want = chunked(MeshDecoder(cfg, make_mesh(n_time, n_freq, ["cpu"] * n)), windows)
-                assert got == want, (name, n_time, n_freq, pre, got, want)
-                demod_kernel = "survivor" if pre is None else "demod"
-                assert all(counts[k] > 0 for k in ("scan", demod_kernel, "bp")), counts
-                pipe = pipeline.DecodePipeline(cfg).to(dev)
-                unsharded = set()
-                for lo in range(0, len(windows), 4):
-                    res = to_host(pipe(torch.from_numpy(windows[lo:lo + 4]).to(dev)))
-                    unsharded |= {m for s in mesh_summary(cfg, cfg.freqs, res) for m in s}
-                sharded = {m for s in got for m in s}
-                assert unsharded and unsharded <= sharded, (unsharded, sharded)
-                log(f"[mesh] ({n_time}, {n_freq}) on {DEVICE} x {n}, {name}, prefilter "
-                    f"{'auto' if pre is None else pre}: equal to the CPU mesh, "
-                    f"{sorted(sharded)} holds the unsharded {sorted(unsharded)}; launches {counts}")
+    for n_time, n_freq in hw.MESH_SHAPES:
+        for name, cfg, windows in hw.mesh_cases():
+            rec = {}
+            hw.mesh_parity(rec, cfg, windows, n_time, n_freq, dev)
+            log(f"[mesh] ({n_time}, {n_freq}) on {DEVICE} x {n_time * n_freq}, {name}: equal "
+                f"to the CPU mesh, {rec['messages']} holds the unsharded {rec['unsharded']}; "
+                f"launches {rec['launches']}")
 
     # ms/window at B=64: MeshDecoder (1, 4) on one card against the unsharded
     # pipeline, both with the fetch to the host (host clock)
@@ -851,6 +642,22 @@ def phase8_sharding(demo_windows, bb_cfg, bb_windows, card) -> None:
     mesh_line = [ln for ln in outs[0][1].splitlines() if ln.startswith("Mesh:")]
     log(f"[parallel] two gloo processes on {DEVICE}: rank 0 printed only row 0's message "
         f"and Done, rank 1 only row 1's; {mesh_line[0]}")
+
+
+def phase9_inputs() -> None:
+    """IQ input and the FFT Hilbert transform on the card against
+    --device=cpu, and in process with their launches counted."""
+    import torch
+
+    from msk144cudecoder_tpu_torch.tools import run_hwtests as hw
+
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        hw.input_paths(rec, torch.device(DEVICE), pathlib.Path(tmp))
+    for tag, r in rec.items():
+        log(f"[inputs] {tag}: CLI on the card {r['lines']} lines, identical to --device=cpu "
+            f"but for date=; messages {r['messages']}; StreamDecoder in process "
+            f"{r['in_process']}, launches {r['launches']}")
 
 
 def profile_passes(pipe, raw, passes: int):

@@ -247,6 +247,9 @@ def test_import_guard():
             "import msk144cudecoder_tpu_torch.ops.pipeline, msk144cudecoder_tpu_torch.runtime\n"
             "import msk144cudecoder_tpu_torch.stimulus, msk144cudecoder_tpu_torch.runtime.native\n"
             "import msk144cudecoder_tpu_torch.parallel, msk144cudecoder_tpu_torch.parallel.cli\n"
+            "import msk144cudecoder_tpu_torch.runtime.evidence\n"
+            "import msk144cudecoder_tpu_torch.tools.sensitivity_sweep\n"
+            "import msk144cudecoder_tpu_torch.tools.run_hwtests\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'msk144cudecoder_tpu' or m.startswith('msk144cudecoder_tpu.')]\n"
             "print(bad)\n")
