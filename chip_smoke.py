@@ -25,13 +25,18 @@ caught, and any failure exits non-zero.
      B4 full demod (the deep scan's 64 windows, held against the plain
      version 4 windows at a time; F=101 depth 4 on 8 windows, F=501 depth 6
      on 2, depth 8 with 5 candidates per pattern on 2; lags planted at the
-     window's wrap points)
+     window's wrap points); then the bf16 instantiations (fast_math) against
+     the fast plain versions at the main path's shapes: B1 and B2 on its 64
+     windows (default, and deep or planted), B3 on the fast main path's rows
+     and on planted rows, B4 on the deep scan's 64 windows
   3. main path: the CLI on demo/capture.raw on the card decodes the three
      planted messages, with lines identical (but for date=) to --device=cpu;
      an in-process StreamDecoder pass over the demo launches the scan,
      survivor and BP kernels. The same for the full-demod path
      (--survivor-prefilter=0), whose pass launches the scan, demod and BP
-     kernels
+     kernels. Then each path's StreamDecoder pass in the bf16 mode
+     (DecoderConfig(fast_math=True)): the three messages, and only the fast
+     instantiations of the path's kernels launch
   4. busy band: the four-ping pileup at width 200, depth 6, nbadsync 3,
      K=256 decodes all four, with per-message (num_avg, nbadsync) equal to the
      CPU run, and the survivor-overflow warning fires ("at least"); with the
@@ -43,7 +48,9 @@ caught, and any failure exits non-zero.
   6. timing with CUDA events: ms/window and x real time at the default and
      deep configs at B=1 and B=64 and of the full-demod path at the deep
      config, the per-stage split, and a torch.profiler trace of a few passes
-     (device time per pass, busy share, the largest device entries)
+     (device time per pass, busy share, the largest device entries); the
+     bf16 mode beside float32 at B=64 on the default and deep configs, in
+     turns (fp32, bf16, bf16, fp32), with the bf16 pass's stage split
   7. the throughput CLI on the card: on the demo, --window-batch=8
      --pipeline-depth=4 prints the lines of --window-batch=1 on the card and
      of --device=cpu, with the prefilter on and off; on a long stream (the
@@ -74,9 +81,12 @@ caught, and any failure exits non-zero.
 The checks of phases 2, 3 (the CLI lines), 4, 8 (MeshDecoder parity) and 9
 are the on-card battery's (msk144cudecoder_tpu_torch/tools/run_hwtests.py),
 called from here so that the two cannot drift; the battery adds the
-sensitivity sweep and the streaming soak. The line before the last is the JSON kernel table (each kernel at the main
-path's shapes, its launches in the phase-3 pass and per pipeline pass); the
-last line is the JSON device record.
+sensitivity sweep, the streaming soak and the bf16 mode against float32
+(its precision step). The line before the last is the JSON kernel table
+(each kernel at the main path's shapes, in float32 and, as "<name>_fast",
+in bf16; its launches in the phase-3 pass and per pipeline pass, and its
+share of the bound, bound_ms / ms); the last line is the JSON device
+record.
 """
 
 from __future__ import annotations
@@ -102,6 +112,16 @@ DEVICE = "cuda:0"
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_phase_start = [time.perf_counter()]
+
+
+def phase_done(n: int) -> None:
+    """Log phase n's wall time (host clock, since the previous phase ended)."""
+    now = time.perf_counter()
+    log(f"[phase {n}] {now - _phase_start[0]:.1f} s")
+    _phase_start[0] = now
 
 
 def cuda_time(fn, reps: int, warmup: int = 2, queued: bool = False) -> float:
@@ -133,38 +153,64 @@ def kernel_times(fn, reps: int) -> tuple[float, float]:
     return cuda_time(fn, reps, queued=True), cuda_time(fn, reps)
 
 
-# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): FP32
-# outside the tensor cores and HBM3; the special-function units give 16
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet and its
+# H100 architecture whitepaper): FP32 outside the tensor cores, BF16 outside
+# them (packed bf16x2 instructions, twice FP32's rate: 133.8 TFLOP/s), dense
+# BF16 on the tensor cores and HBM3; the special-function units give 16
 # results per clock per SM (CUDA C++ Programming Guide, compute capability
 # 9.0) on 132 SMs at the 1.98 GHz boost clock.
 PEAK_FP32 = 67e12  # FLOP/s
+PEAK_BF16 = 2 * PEAK_FP32  # FLOP/s, outside the tensor cores
+PEAK_BF16_TENSOR = 989e12  # FLOP/s, bf16 x bf16 products with float32 sums
 PEAK_HBM = 3.35e12  # bytes/s
 PEAK_SFU = 16 * 132 * 1.98e9  # special-function results/s
-# the matched-filter tail of one row (B2, B4): two 42-tap sync sums, 144
-# 12-tap softbits, their mean and variance
-TAIL_FLOPS = 2 * 42 * 8 + 144 * 12 * 4 + 4 * 144
+# the matched-filter tail of one row (B2, B4): the products of frame and
+# taps (two 42-tap complex sync sums, 144 12-tap softbit dots), then the
+# derotation of each tap's sample and the softbits' mean and variance
+TAIL_DOT_FLOPS = 2 * 42 * 8 + 144 * 12 * 2
+TAIL_F32_FLOPS = 144 * 12 * 2 + 4 * 144
 
 
-def bound(flops: float = 0.0, nbytes: float = 0.0, sfu: float = 0.0) -> tuple[float, str]:
+def bound(flops: float = 0.0, nbytes: float = 0.0, sfu: float = 0.0,
+          bf16_flops: float = 0.0, tensor_flops: float = 0.0) -> tuple[float, str]:
     """The least time the card could take (ms) and what bounds it: the
-    larger of the operations over their peak rate and the bytes over HBM's."""
-    ops_ms = max(flops / PEAK_FP32, sfu / PEAK_SFU) * 1e3
+    larger of the operations over their peak rate and the bytes over HBM's.
+    FP32 and BF16 operations outside the tensor cores share the FMA pipes,
+    so their times add; the tensor cores and the special-function units run
+    beside them."""
+    simt_s = flops / PEAK_FP32 + bf16_flops / PEAK_BF16
+    ops_ms = max(simt_s, tensor_flops / PEAK_BF16_TENSOR, sfu / PEAK_SFU) * 1e3
     bytes_ms = nbytes / PEAK_HBM * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def split_ops(fast: bool, f32: float = 0.0, bf16: float = 0.0, dot: float = 0.0) -> dict:
+    """bound()'s operation counts of a kernel whose work is f32 (float32 in
+    both modes), bf16 (bf16 arithmetic in the fast mode) and dot (products
+    of bf16 operands summed in float32 in the fast mode, the work of a bf16
+    tensor-core dot): all float32 in the float32 mode."""
+    if not fast:
+        return dict(flops=f32 + bf16 + dot)
+    return dict(flops=f32, bf16_flops=bf16, tensor_flops=dot)
 
 
 def tensor_bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def scan_bound(n_win: int, F: int, depth: int, k: int, dec: int) -> tuple[float, str]:
-    """Kernel B1: per (window, f, coarse lag) 42 complex multiply-adds, the
-    E factor, the T_m sums, the pattern sums and a magnitude per pattern;
-    the windows, B, E, chi in and (pos, xb) out once."""
+def scan_bound(n_win: int, F: int, depth: int, k: int, dec: int,
+               fast: bool = False) -> tuple[float, str]:
+    """Kernel B1: per (window, f, coarse lag) 42 complex multiply-adds (in
+    the bf16 mode three real ones of bf16 operands, Karatsuba, counted as a
+    tensor-core dot), the E factor, the T_m sums, the pattern sums and a
+    magnitude per pattern; the windows, B, E, chi in and (pos, xb) out once
+    (complex64 in both modes: the kernel rounds on the card)."""
     n2 = 5184 // dec
-    per_lag = 42 * 8 + 6 + 2 * min(depth, 6) + 2 * depth + 4 * depth
+    lags = n_win * F * n2
+    corr = lags * 42 * (6 if fast else 8)
+    rest = lags * (6 + 2 * min(depth, 6) + 2 * depth + 4 * depth)
     nbytes = 8 * (n_win * 5184 + F * (42 + n2 + 1) + n_win * F * depth * k)
-    return bound(flops=n_win * F * n2 * per_lag, nbytes=nbytes)
+    return bound(**split_ops(fast, f32=rest, dot=corr), nbytes=nbytes)
 
 
 def bp_bound(llr, valid, res, max_iters: int = 10) -> tuple[int, float, str]:
@@ -225,27 +271,35 @@ def main() -> int:
     demo_windows = stimulus.stream_windows(demo)
     kernel_rows = []
 
+    phase_done(1)
+
     # ---- phase 2: each kernel against its plain version ---------------------
-    # the checks are the battery's (tools/run_hwtests.py), at its shapes
-    for cfg, nw in hw.SCAN_CASES:
+    # the checks are the battery's (tools/run_hwtests.py), at its shapes, in
+    # float32 and then in bf16 (the main path's shapes); a kernel row per
+    # kernel and mode at the main path's batch
+    def row_name(base: str, cfg) -> str:
+        return base + ("_fast" if cfg.fast_math else "")
+
+    for cfg, nw in hw.SCAN_CASES + hw.FAST_SCAN_CASES:
         pipe, c = hw.kernel_windows(cfg, nw, rng, dev)
         stats, args = hw.check_scan(pipe, c)
         dec, depth, k = cfg.scan_decimation, cfg.scan_depth, cfg.candidates_per_pattern
         ms, ms_unq = kernel_times(lambda: scan.scan_cuda(*args), reps=20)
         plain_ms = cuda_time(lambda: scan.scan_plain(*args), reps=3)
-        bound_ms, bound_by = scan_bound(nw, cfg.num_freqs, depth, k, dec)
+        bound_ms, bound_by = scan_bound(nw, cfg.num_freqs, depth, k, dec, cfg.fast_math)
         name = hw.scan_name(cfg, nw)
         log(f"[B1] {name}: pos agree {stats['pos_agree_min']:.4f} (least over the patterns "
             f"but 5), near ties {stats['near_ties']}, max |dxb| {stats['max_abs_err']:.3g}, "
             f"kernel {ms:.4f} ms ({ms_unq:.4f} not queued), plain {plain_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f}  ({card})")
-        if cfg == DecoderConfig() and nw == 64:
-            kernel_rows.append(dict(name="scan", route="cuda",
+        if cfg.replace(fast_math=False) == DecoderConfig() and nw == 64:
+            kernel_rows.append(dict(name=row_name("scan", cfg), route="cuda",
                                     source="msk144cudecoder_tpu_torch/csrc/scan.cu",
                                     replaces="msk144cudecoder_tpu/ops/pallas_scan.py:139",
                                     max_abs_err=stats["max_abs_err"],
                                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                     bound_by=bound_by, library_ms=None, shape=name))
+        if cfg == DecoderConfig() and nw == 64:
             # a yardstick, not the same function: the correlation stage
             # alone as one complex64 matmul of the (64 * 1296, 42) Hankel
             # matrix by B (42, F), TF32 off
@@ -262,24 +316,31 @@ def main() -> int:
     # B2: the main path's survivor rows of 64 windows (default and deep
     # configs), and of 16 windows with wrap positions and gap patterns
     # planted in every window
-    for cfg, nw, plant in hw.SURVIVOR_CASES:
+    for cfg, nw, plant in hw.SURVIVOR_CASES + hw.FAST_SURVIVOR_CASES:
         pipe, c = hw.kernel_windows(cfg, nw, rng, dev)
         stats, sargs, (sb_k, nb_k) = hw.check_survivor(pipe, c, plant)
         ms, ms_unq = kernel_times(lambda: survivor.demod_survivors_cuda(*sargs), reps=20)
         plain_ms = cuda_time(lambda: survivor.demod_survivors_plain(*sargs), reps=5)
         pos_f, p_idx, dt = sargs[3], sargs[5], sargs[6]
+        # per row the mix and the pattern sum (8 FLOPs a sample and active
+        # frame), the carrier (one complex product a sample; in the bf16 mode
+        # two, W[f, 128j] W[f, r] and the frame times it) and the tail
         n_frames = pipe.masks.sum(dim=1)[p_idx.long()]
+        rows = p_idx.numel()
+        mix = float(C.FRAME_LEN * 8 * n_frames.sum().item())
+        carrier = C.FRAME_LEN * rows * (12 if cfg.fast_math else 6)
         bound_ms, bound_by = bound(
-            flops=float(C.FRAME_LEN * (8 * n_frames + 6).sum().item())
-            + TAIL_FLOPS * p_idx.numel(),
+            **split_ops(cfg.fast_math, f32=TAIL_F32_FLOPS * rows, bf16=mix + carrier,
+                        dot=TAIL_DOT_FLOPS * rows),
             nbytes=tensor_bytes(*sargs[:6], *dt, sb_k, nb_k))
         name = hw.survivor_name(cfg, nw, pos_f.shape[1], plant)
-        log(f"[B2] {name}: nbadsync equal, max rel {stats['max_rel']:.3g}, kernel {ms:.4f} ms "
+        log(f"[B2] {name}: nbadsync unequal {stats['nbadsync_unequal']} (all near 0: "
+            f"{stats['unequal_near_zero']}), max rel {stats['max_rel']:.3g}, kernel {ms:.4f} ms "
             f"({ms_unq:.4f} not queued), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}), share {bound_ms / ms:.3f}, rows per block "
             f"{survivor.rows_per_block(pos_f.shape[1], nw, kernels.num_sms(dev))}  ({card})")
-        if cfg == DecoderConfig() and nw == 64:
-            kernel_rows.append(dict(name="survivor", route="cuda",
+        if cfg.replace(fast_math=False) == DecoderConfig() and nw == 64:
+            kernel_rows.append(dict(name=row_name("survivor", cfg), route="cuda",
                                     source="msk144cudecoder_tpu_torch/csrc/survivor.cu",
                                     replaces="msk144cudecoder_tpu/ops/pallas_survivor.py:229",
                                     max_abs_err=stats["max_abs_err"],
@@ -290,18 +351,19 @@ def main() -> int:
     # B3: the main path's own rows, the selected survivors of 64 demo
     # windows (16,384 rows); then 4096 rows, half planted codewords + noise,
     # a quarter pure noise, a quarter planted but marked invalid
-    for tag, llr, valid, lt in hw.bp_inputs(rng, dev):
-        stats, r_k = hw.check_bp(tag, llr, valid, lt)
-        ms, ms_unq = kernel_times(lambda: ldpc.bp_decode_cuda(llr, valid, lt), reps=20)
-        plain_ms = cuda_time(lambda: ldpc.bp_decode_plain(llr, valid, lt), reps=5)
+    for tag, llr, valid, lt, fast in [(*case, fast) for fast in (False, True)
+                                      for case in hw.bp_inputs(rng, dev, fast)]:
+        stats, r_k = hw.check_bp(tag, llr, valid, lt, fast)
+        ms, ms_unq = kernel_times(lambda: ldpc.bp_decode_cuda(llr, valid, lt, fast=fast), reps=20)
+        plain_ms = cuda_time(lambda: ldpc.bp_decode_plain(llr, valid, lt, fast=fast), reps=5)
         updates, bound_ms, bound_by = bp_bound(llr, valid, r_k)
-        name = f"bp R={llr.shape[0]} ({tag})"
-        log(f"[B3] {name}: found/codeword/iterations/hard_errors identical ({stats['found']} "
-            f"found, {stats['valid']} valid, {updates} row-iterations of updates), kernel "
-            f"{ms:.4f} ms ({ms_unq:.4f} not queued), plain {plain_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f}  ({card})")
+        name = hw.bp_name(tag, llr.shape[0], fast)
+        log(f"[B3] {name}: outputs unequal to the plain version's: {stats['unequal_outputs']} "
+            f"({stats['found']} found, {stats['valid']} valid, {updates} row-iterations of "
+            f"updates), kernel {ms:.4f} ms ({ms_unq:.4f} not queued), plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f}  ({card})")
         if tag == "main-path rows":
-            kernel_rows.append(dict(name="bp", route="cuda",
+            kernel_rows.append(dict(name="bp_fast" if fast else "bp", route="cuda",
                                     source="msk144cudecoder_tpu_torch/csrc/bp.cu",
                                     replaces="msk144cudecoder_tpu/ops/pallas_ldpc.py:115",
                                     max_abs_err=stats["max_abs_err"],
@@ -316,7 +378,7 @@ def main() -> int:
     # >= 99.99 % of the rows (noise rows' sync softbits can sit at +-0), and
     # every unequal row has a plain sync softbit within 1e-3 of 0 before
     # scaling
-    for cfg, nw in hw.DEMOD_CASES:
+    for cfg, nw in hw.DEMOD_CASES + hw.FAST_DEMOD_CASES:
         cfg = cfg.replace(survivor_prefilter=0)
         pipe, c = hw.kernel_windows(cfg, nw, rng, dev)
         stats, dargs, chunks, (sb_k, nb_k) = hw.check_demod(pipe, c)
@@ -330,10 +392,13 @@ def main() -> int:
         plain_ms = cuda_time(plain_all, reps=1 if nw == 64 else 3, warmup=1)
         # per (window, f): the mix (6 FLOPs a sample), then one complex add a
         # sample per pattern (the incremental pattern sums); per row the
-        # matched-filter tail
+        # matched-filter tail (in the bf16 mode only the tail's products
+        # take bf16 operands)
         bound_ms, bound_by = bound(
-            flops=nw * cfg.num_freqs * C.WINDOW_LEN * (6 + 2 * cfg.scan_depth)
-            + TAIL_FLOPS * nb_k.numel(),
+            **split_ops(cfg.fast_math,
+                        f32=nw * cfg.num_freqs * C.WINDOW_LEN * (6 + 2 * cfg.scan_depth)
+                        + TAIL_F32_FLOPS * nb_k.numel(),
+                        dot=TAIL_DOT_FLOPS * nb_k.numel()),
             nbytes=tensor_bytes(*dargs[:3], *pipe.demod_tables, sb_k, nb_k))
         name = hw.demod_name(cfg, nw, nb_k.numel())
         log(f"[B4] {name}: max rel {stats['max_rel']:.3g}, nbadsync equal on "
@@ -342,7 +407,7 @@ def main() -> int:
             f"queued), plain {plain_ms:.4f} ms ({len(chunks)} calls of <= 4 windows), bound "
             f"{bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f}  ({card})")
         if nw == 64:
-            kernel_rows.append(dict(name="demod", route="cuda",
+            kernel_rows.append(dict(name=row_name("demod", cfg), route="cuda",
                                     source="msk144cudecoder_tpu_torch/csrc/demod.cu",
                                     replaces="msk144cudecoder_tpu/ops/pallas_demod.py:169",
                                     max_abs_err=stats["max_abs_err"], ms=ms, plain_ms=plain_ms,
@@ -350,6 +415,8 @@ def main() -> int:
                                     shape=name))
         del sb_k, nb_k, dargs, chunks
         torch.cuda.empty_cache()
+
+    phase_done(2)
 
     # ---- phase 3: main path, then the full-demod path ----------------------
     # each path is driven with the launch counts set to 0 just before it and
@@ -367,24 +434,25 @@ def main() -> int:
             f"date=; messages {rec['messages']}")
         log(f"[{tag}] {rec['warning']}")
 
-        decoder = StreamDecoder(cfg, dev)
-        kernels.reset_launch_counts()
-        found = set()
-        with contextlib.redirect_stderr(io.StringIO()):
-            for w in demo_windows:
-                decoder.submit(w)
-                for item in decoder.collect():
-                    found.add(item.message)
-        torch.cuda.synchronize()
-        counts = kernels.launch_counts()
+        found, counts = stream_pass(StreamDecoder(cfg, dev), demo_windows)
         assert found == hw.DEMO_MESSAGES, (tag, found)
         assert all((n > 0) == (k in path_kernels) for k, n in counts.items()), (tag, counts)
         log(f"[{tag}] StreamDecoder pass over {len(demo_windows)} demo windows: "
             f"launches {counts}")
         path_counts.update({k: counts[k] for k in path_kernels if k not in path_counts})
+    for tag, _, cfg, _ in paths:  # the same passes in the bf16 mode
+        cfg = cfg.replace(fast_math=True)
+        found, counts = stream_pass(StreamDecoder(cfg, dev), demo_windows)
+        assert found == hw.DEMO_MESSAGES, (tag, found)
+        assert {k for k, n in counts.items() if n} == hw.path_kernels(cfg), (tag, counts)
+        log(f"[{tag} bf16] StreamDecoder pass over {len(demo_windows)} demo windows in the "
+            f"bf16 mode: messages {sorted(found)}; launches {counts}")
+        path_counts.update({k: counts[k] for k in hw.path_kernels(cfg) if k not in path_counts})
     for row in kernel_rows:  # one pipeline pass per demo window
         row["launches"] = path_counts[row["name"]]
         row["launches_per_pass"] = row["launches"] / len(demo_windows)
+
+    phase_done(3)
 
     # ---- phase 4: busy band -----------------------------------------------
     busy = {}
@@ -395,6 +463,8 @@ def main() -> int:
     log(f"[busy] prefilter 0, K={k_all}: {busy[f'full_k{k_all}']}; K=256: the same "
         f"(num_avg, nbadsync), warning: {busy['full_k256_warning']}")
 
+    phase_done(4)
+
     # ---- phase 5: deep scan, weak signal -----------------------------------
     weak = stimulus.synthesize_audio_int16([("CQ K1ABC FN42", 1500.0)], 6, snr_db=-4.0,
                                            rng=np.random.default_rng(1000))
@@ -403,6 +473,8 @@ def main() -> int:
     assert {r.message for r in weak_res} == {"CQ K1ABC FN42"}, weak_res
     log(f"[deep] -4 dB stimulus decodes at width 500 step 1 depth 6: "
         f"{[(r.message, r.num_avg, r.nbadsync, r.f0) for r in weak_res]}")
+
+    phase_done(5)
 
     # ---- phase 6: timing --------------------------------------------------
     for name, cfg in (("default", DecoderConfig()), ("deep", hw.DEEP),
@@ -421,6 +493,24 @@ def main() -> int:
             log(f"[profile] {name} B={nb}: wall {wall:.4f} ms/pass, device {busy:.4f} ms/pass "
                 f"({n_ops:.0f} device ops/pass), busy share {busy / wall:.4f}; largest: "
                 + ", ".join(f"{k} {v:.4f}" for k, v in top) + f"  ({card})")
+    # the bf16 mode beside float32 at B=64, in turns (fp32, bf16, bf16, fp32)
+    raws = np.stack([demo_windows[i % len(demo_windows)] for i in range(64)])
+    raw = torch.from_numpy(raws).to(dev)
+    for name, cfg in (("default", DecoderConfig()), ("deep", hw.DEEP)):
+        pipes = {fast: pipeline.DecodePipeline(cfg.replace(fast_math=fast)).to(dev)
+                 for fast in (False, True)}
+        turns = {False: [], True: []}
+        for fast in (False, True, True, False):
+            turns[fast].append(cuda_time(lambda: pipes[fast](raw), reps=5) / 64)
+        stages = stage_split(pipes[True], raw, reps=9)
+        log(f"[time bf16] {name} B=64 in turns fp32, bf16, bf16, fp32: ms/window fp32 "
+            + ", ".join(f"{t:.4f}" for t in turns[False]) + "; bf16 "
+            + ", ".join(f"{t:.4f}" for t in turns[True]) + "; bf16 stages (median ms/call) "
+            + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()) + f"  ({card})")
+        wall, busy, n_ops, top = profile_passes(pipes[True], raw, passes=5)
+        log(f"[profile bf16] {name} B=64: wall {wall:.4f} ms/pass, device {busy:.4f} ms/pass "
+            f"({n_ops:.0f} device ops/pass), busy share {busy / wall:.4f}; largest: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in top) + f"  ({card})")
     dec1 = StreamDecoder(DecoderConfig(), dev)
     lats = []
     with contextlib.redirect_stderr(io.StringIO()):
@@ -434,13 +524,18 @@ def main() -> int:
         f"{len(lats)} windows: median {np.median(lats):.3f} ms, max {max(lats):.3f} ms, "
         f"of the {C.LOOP_SOFT_BUDGET_MS:g} ms loop budget  ({card})")
 
+    phase_done(6)
     phase7_throughput_cli(paths, cli_out, demo, demo_windows, card)
+    phase_done(7)
     phase8_sharding(demo_windows, card)
+    phase_done(8)
     phase9_inputs()
+    phase_done(9)
 
-    print(json.dumps({"kernels": [{k: r[k] for k in (
+    print(json.dumps({"kernels": [{**{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "launches_per_pass", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")} for r in kernel_rows]}))
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        "share": r["bound_ms"] / r["ms"]} for r in kernel_rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(dev),
                                              "count": torch.cuda.device_count()}}))
@@ -450,6 +545,25 @@ def main() -> int:
 DEEP_FLAGS = ("--search-width=500", "--search-step=1", "--scan-depth=6",
               "--nbadsync-threshold=3")
 KERNEL_NAMES = ("scan_kernel", "survivor_kernel", "demod_kernel", "bp_kernel")
+
+
+def stream_pass(decoder, windows) -> tuple[set, dict]:
+    """The decoder over the windows one by one (submit, collect), with the
+    launch counts set to 0 just before: (the messages decoded, the counts
+    just after)."""
+    import torch
+
+    from msk144cudecoder_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    found = set()
+    with contextlib.redirect_stderr(io.StringIO()):
+        for w in windows:
+            decoder.submit(w)
+            for item in decoder.collect():
+                found.add(item.message)
+    torch.cuda.synchronize()
+    return found, kernels.launch_counts()
 
 
 def phase7_throughput_cli(paths, cli_out, demo, demo_windows, card) -> None:

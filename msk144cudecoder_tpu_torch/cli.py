@@ -8,9 +8,11 @@ before the previous one is post-processed, and the throughput mode
 once on a worker pool (each on its own CUDA stream on a card) while
 post-processing stays in stream order. The native C++ framer reads stdin
 when it can be built, the numpy one otherwise. The port differs in two
-ways: `--device` (default cuda) replaces `--platform`, and the banner says
-`Precision: fp32`, since the port computes in float32 whatever
-`--exact-math` says. `--profile-dir` writes a torch.profiler trace.
+ways: `--device` (default cuda) replaces `--platform`, and the CLI decodes
+in float32 (`Precision: fp32`), the JAX package's `--exact-math`: the port's
+bf16 mode is reached through DecoderConfig(fast_math=True) in Python, and
+the banner names whichever the configuration holds. `--profile-dir` writes
+a torch.profiler trace.
 """
 
 from __future__ import annotations
@@ -71,8 +73,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "post-processing stays in stream order; 1 = fully "
                         "synchronous (default 4)")
     p.add_argument("--exact-math", action="store_true",
-                   help="accepted for compatibility; the port always "
-                        "computes in fp32")
+                   help="compute in fp32: the JAX CLI's exact mode and the "
+                        "port's CLI default, so accepted for compatibility")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to decode on: cuda (default), cuda:N "
                         "or cpu (the kernels' plain torch versions)")
@@ -95,7 +97,7 @@ def config_from_args(args: argparse.Namespace) -> DecoderConfig:
         candidates_per_pattern=args.candidates_per_pattern,
         survivor_prefilter=args.survivor_prefilter,
         window_batch=args.window_batch,
-        fast_math=not args.exact_math,
+        fast_math=False,  # --exact-math or not: the CLI decodes in fp32
         scan_decimation=args.scan_decimation,
     )
     if args.center_frequency is not None:
@@ -125,7 +127,7 @@ def print_banner(cfg: DecoderConfig, device, out=None) -> None:
         f"Candidate slots: {cfg.num_candidates}",
         f"LDPC survivor batch: {cfg.max_survivors}",
         f"Scan lag grid: every {cfg.scan_decimation} sample(s)",
-        "Precision: fp32",
+        f"Precision: {'bf16 inputs, f32 accumulation' if cfg.fast_math else 'fp32'}",
         f"Device: {device}",
         "",
     ]

@@ -3,13 +3,19 @@
 The same fields, defaults and validation as the JAX package's
 msk144cudecoder_tpu/config.py, so that a configuration means the same decode
 in both packages (the tests build one of each from the same keywords). It is
-frozen and hashable. Two fields differ in effect here:
+frozen and hashable. Two fields differ here:
 
   use_pallas   absent: the port's kernels run whenever the tensors lie on a
                CUDA device, and their plain torch versions on the CPU.
-  fast_math    accepted for flag compatibility and ignored: the port computes
-               in float32 throughout (TF32 off). A reduced-precision mode
-               would need its own decode validation.
+  fast_math    defaults to False, where the JAX package defaults to True: a
+               deliberate difference. False computes in float32 throughout
+               (TF32 off), the JAX package's exact mode. True selects the
+               JAX package's bf16-input, f32-accumulate policy of its TPU
+               kernels (ops/precision.py lists every rounding point) on both
+               devices: the hand-written kernels on a card, and their plain
+               versions, which round at the same points, on the CPU. The
+               default stays float32 until the mode's decodes and speed on
+               the card justify the switch, as they did for the JAX default.
 """
 
 from __future__ import annotations
@@ -44,7 +50,8 @@ class DecoderConfig:
     # every candidate (the full demod, kernel B4; exact survivor counts)
     prefilter_per_cell: int = 2  # cap on prefiltered candidates per (freq,
     # pattern) cell; >= 2 keeps two same-frequency transmissions alive
-    fast_math: bool = True  # ignored by the port (float32 throughout)
+    fast_math: bool = False  # True: bf16 inputs, f32 accumulation in the
+    # kernels and their plain versions (ops/precision.py); False: float32
     window_batch: int = 1  # windows decoded per device call
     scan_decimation: int = 4  # the sync scan correlates every dec-th lag
     # (dec in {1, 2, 4}); every roll of the pattern combine is divisible by

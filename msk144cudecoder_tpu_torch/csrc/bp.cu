@@ -44,6 +44,16 @@
 // constant cache serialises them) were each slower at one window's 256
 // rows and at 8 windows' 2048; a warp per row (no block barriers, but
 // twelve edges per lane in sequence) was slower at every batch.
+//
+// kFast (DecoderConfig.fast_math; ops/precision.py, B3) rounds where the JAX
+// kernel's fast mode does (pallas_ldpc.py:153-155, 186-190, 199-207): the
+// three check-to-bit messages are rounded to bf16 and summed in FP32 before
+// zn = llr + their sum; a bit-to-check message reads zn rounded to bf16
+// (once per bit, in shared memory) minus the unrounded tov; each edge
+// splits its log2 term into two bf16 parts, the row sum is the sum of the
+// high parts plus the sum of the low parts, and it reaches the edges as its
+// own two bf16 parts. Parity, CRC, tanhf, exp2f and platanh are the FP32
+// instantiation's. Every output equals bp_decode_plain(fast) as in FP32.
 
 #include "common.cuh"
 
@@ -63,11 +73,14 @@ constexpr int kMaxHardErrors = 18;
 constexpr int kThreads = kBits;  // a thread per bit
 constexpr int kEdgesPerThread = kEdges / kThreads;
 
-// The row's messages.
+// The row's messages. kFast keeps each log2 term as its two bf16 parts:
+// the high one in lt, the low one in lt_lo.
+template <bool kFast>
 struct RowState {
   float tov[kEdges];
   float t[kEdges];
   float lt[kEdges];
+  float lt_lo[kFast ? kEdges : 1];
   float zn[kBits];
   float row_sum[kChecks];
   int row_neg[kChecks];
@@ -100,6 +113,13 @@ __device__ __forceinline__ void row_words(bool own, unsigned* shared, unsigned (
 // << 8 in (check, slot) order; bit_edges (128,) the bit's three edges, 9
 // bits each; row_start (39,) each check's first edge; check_mask (38, 4) and
 // crc_mask (13, 3) 32-bit words of the bits of each check and CRC row.
+// x as the sum of two bf16 parts, x ~= h + l (about 16 mantissa bits)
+__device__ __forceinline__ float split2(float x) {
+  const float h = round_bf16(x);
+  return h + round_bf16(x - h);
+}
+
+template <bool kFast>
 __global__ void __launch_bounds__(kThreads)
 bp_kernel(const float* __restrict__ llr, const bool* __restrict__ valid,
           const int* __restrict__ edge, const int* __restrict__ bit_edges,
@@ -107,7 +127,7 @@ bp_kernel(const float* __restrict__ llr, const bool* __restrict__ valid,
           const int* __restrict__ crc_mask, int8_t* __restrict__ cw_out,
           bool* __restrict__ found_out, int* __restrict__ iters_out,
           int* __restrict__ nerr_out, int max_iters) {
-  __shared__ RowState st;
+  __shared__ RowState<kFast> st;
   const int row = blockIdx.x;
   const int j = threadIdx.x;
   int8_t* cw_row = cw_out + static_cast<size_t>(row) * kBits;
@@ -137,8 +157,13 @@ bp_kernel(const float* __restrict__ llr, const bool* __restrict__ valid,
     row_words(l > 0.f, st.hard_words, hard);
 
     for (int it = 0; it < max_iters; ++it) {
-      const float z = l + st.tov[be & 511] + st.tov[(be >> 9) & 511] + st.tov[be >> 18];
-      st.zn[j] = z;
+      float z;
+      if constexpr (kFast)
+        z = l + (round_bf16(st.tov[be & 511]) + round_bf16(st.tov[(be >> 9) & 511]) +
+                 round_bf16(st.tov[be >> 18]));
+      else
+        z = l + st.tov[be & 511] + st.tov[(be >> 9) & 511] + st.tov[be >> 18];
+      st.zn[j] = kFast ? round_bf16(z) : z;  // read only by the bit-to-check messages
       unsigned cw[kWords];
       row_words(z > 0.f, st.cw_words, cw);  // its barrier also publishes zn
       int n_err = 0;
@@ -177,21 +202,40 @@ bp_kernel(const float* __restrict__ llr, const bool* __restrict__ valid,
         const float te = tanhf(-0.5f * (st.zn[eg[i] & 255] - st.tov[e]));
         lt_own[i] = log2f(fmaxf(fabsf(te), 0x1p-80f));
         st.t[e] = te;
-        st.lt[e] = lt_own[i];
+        if constexpr (kFast) {
+          st.lt[e] = round_bf16(lt_own[i]);
+          st.lt_lo[e] = round_bf16(lt_own[i] - st.lt[e]);
+        } else {
+          st.lt[e] = lt_own[i];
+        }
         neg_own |= static_cast<unsigned>(te < 0.f) << i;
       }
       __syncthreads();
       if (j < kChecks) {
-        float S = st.lt[lo];
         int neg = st.t[lo] < 0.f;
+        if constexpr (kFast) {  // the high parts' sum plus the low parts'
+          float Sh = st.lt[lo];
+          float Sl = st.lt_lo[lo];
 #pragma unroll
-        for (int k = 1; k < kDegree; ++k) {  // unrolled, so that the loads go out together
-          if (lo + k < hi) {
-            S += st.lt[lo + k];
-            neg += st.t[lo + k] < 0.f;
+          for (int k = 1; k < kDegree; ++k) {
+            if (lo + k < hi) {
+              Sh += st.lt[lo + k];
+              Sl += st.lt_lo[lo + k];
+              neg += st.t[lo + k] < 0.f;
+            }
           }
+          st.row_sum[j] = split2(Sh + Sl);
+        } else {
+          float S = st.lt[lo];
+#pragma unroll
+          for (int k = 1; k < kDegree; ++k) {  // unrolled, so that the loads go out together
+            if (lo + k < hi) {
+              S += st.lt[lo + k];
+              neg += st.t[lo + k] < 0.f;
+            }
+          }
+          st.row_sum[j] = S;
         }
-        st.row_sum[j] = S;
         st.row_neg[j] = neg;
       }
       __syncthreads();
@@ -218,13 +262,15 @@ bp_kernel(const float* __restrict__ llr, const bool* __restrict__ valid,
 
 }  // namespace
 
-// Plain C interface (ctypes). Launches on `stream`; returns cudaGetLastError().
+// Plain C interface (ctypes). Launches on `stream`; fast != 0: the kFast
+// instantiation. Returns cudaGetLastError().
 extern "C" int msk_bp(const void* llr, const void* valid, const void* edge,
                       const void* bit_edges, const void* row_start, const void* check_mask,
                       const void* crc_mask, void* cw_out, void* found_out, void* iters_out,
-                      void* nerr_out, int rows, int max_iters, void* stream) {
+                      void* nerr_out, int rows, int max_iters, int fast, void* stream) {
   if (rows <= 0) return 0;
-  bp_kernel<<<rows, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = fast ? bp_kernel<true> : bp_kernel<false>;
+  kernel<<<rows, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(llr), static_cast<const bool*>(valid),
       static_cast<const int*>(edge), static_cast<const int*>(bit_edges),
       static_cast<const int*>(row_start), static_cast<const int*>(check_mask),

@@ -5,6 +5,7 @@
 
 #include <cstdint>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace msk {
@@ -27,6 +28,78 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
 // conj(a) * b
 __device__ __forceinline__ float2 cmul_conj(float2 a, float2 b) {
   return make_float2(a.x * b.x + a.y * b.y, a.x * b.y - a.y * b.x);
+}
+
+// The fast_math policy's rounding (ops/precision.py): x rounded to bf16,
+// round to nearest even, as float32.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float2 round_bf16(float2 v) {
+  return __bfloat1622float2(__float22bfloat162_rn(v));
+}
+
+// A matched-filter operand: rounded to bf16 in fast mode, as it is.
+template <bool kFast>
+__device__ __forceinline__ float2 mf_operand(float2 v) {
+  if constexpr (kFast) return round_bf16(v);
+  return v;
+}
+
+// a * b with every product and sum rounded on its own (no fused
+// multiply-add), as the plain versions compute it on the CPU.
+__device__ __forceinline__ float2 cmul_rn(float2 a, float2 b) {
+  return make_float2(__fsub_rn(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y)),
+                     __fadd_rn(__fmul_rn(a.x, b.y), __fmul_rn(a.y, b.x)));
+}
+
+// Complex bf16 values packed in 32 bits, the real part in the low half (the
+// layout of __nv_bfloat162), and bf16 arithmetic on them by the sm_90 PTX
+// instructions, each result rounded once to nearest even. The plain
+// versions (precision.cmul_bf16) round a float32 result instead; for bf16
+// operands the two agree bit for bit: a product of two bf16 values is exact
+// in float32, and a float32 sum of two is exact unless their exponents lie
+// 16 or more apart, where the smaller cannot move the bf16 result.
+__device__ __forceinline__ unsigned pack_bf16(float2 v) {
+  const __nv_bfloat162 b = __float22bfloat162_rn(v);
+  return *reinterpret_cast<const unsigned*>(&b);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(unsigned u) {
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+
+__device__ __forceinline__ unsigned add_bf16x2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ unsigned mul_bf16x2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// i * b: (-b.y, b.x)
+__device__ __forceinline__ unsigned rot_bf16(unsigned b) {
+  return __byte_perm(b, 0, 0x1032) ^ 0x8000u;
+}
+
+// a * b in bf16, given bi = rot_bf16(b): (a.x b.x - a.y b.y, a.x b.y + a.y b.x)
+// as the two rounded products (a.x b.x, a.x b.y) plus (-a.y b.y, a.y b.x),
+// rounded once more
+__device__ __forceinline__ unsigned cmul_bf16(unsigned a, unsigned b, unsigned bi) {
+  return add_bf16x2(mul_bf16x2(__byte_perm(a, 0, 0x1010), b),
+                    mul_bf16x2(__byte_perm(a, 0, 0x3232), bi));
+}
+
+// The 12 matched-filter taps into registers, rounded to bf16 in fast mode.
+template <bool kFast>
+__device__ __forceinline__ void load_taps(const float* __restrict__ pp12, float (&pp)[12]) {
+#pragma unroll
+  for (int i = 0; i < 12; ++i) pp[i] = kFast ? round_bf16(pp12[i]) : pp12[i];
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -63,7 +136,11 @@ constexpr int kSoftbitSlots = 5;   // softbits per lane in warp_tail: t = lane +
 // popcount. Out come the scaled data softbits [8:56) + [64:144), regrouped
 // through `stage` (144 floats of shared memory, 16-byte aligned, the warp's
 // own) as one coalesced 512-byte row, a float4 per lane, to sb_out[0..128),
-// and the count to *nbad_out.
+// and the count to *nbad_out. kFast (ops/precision.py): every frame sample
+// and sync tap is rounded to bf16 as it is read (the caller rounds pp, by
+// load_taps), and every sum after that is float32, as the JAX kernels' bf16
+// matched-filter dot with float32 accumulation.
+template <bool kFast>
 __device__ __forceinline__ void warp_tail(const float2* fr, const float2* __restrict__ sync_conj,
                                           const float (&pp)[12],
                                           const int* __restrict__ sync_pm, float* stage,
@@ -73,9 +150,9 @@ __device__ __forceinline__ void warp_tail(const float2* fr, const float2* __rest
   float2 s1 = make_float2(0.f, 0.f);
   float2 s2 = make_float2(0.f, 0.f);
   for (int i = lane; i < kSyncTaps; i += 32) {
-    const float2 sc = sync_conj[i];
-    s1 = cadd(s1, cmul(fr[i], sc));
-    s2 = cadd(s2, cmul(fr[kSecondSync + i], sc));
+    const float2 sc = mf_operand<kFast>(sync_conj[i]);
+    s1 = cadd(s1, cmul(mf_operand<kFast>(fr[i]), sc));
+    s2 = cadd(s2, cmul(mf_operand<kFast>(fr[kSecondSync + i]), sc));
   }
   s1.x = warp_sum(s1.x);
   s1.y = warp_sum(s1.y);
@@ -104,7 +181,10 @@ __device__ __forceinline__ void warp_tail(const float2* fr, const float2* __rest
     v[j] = 0.f;
   }
   const int slots = lane + 32 * (kSoftbitSlots - 1) < kSoftbits ? 5 : 4;  // lanes 0-15: 5
-  auto tap = [&](int j, int i, float2 z) { v[j] += (z.x * ca + z.y * cb) * pp[i]; };
+  auto tap = [&](int j, int i, float2 z) {
+    z = mf_operand<kFast>(z);
+    v[j] += (z.x * ca + z.y * cb) * pp[i];
+  };
   auto pair = [&](int j, int i) {  // taps i, i + 1 (same side of 6) by one 16-byte load
     const float4 w = *reinterpret_cast<const float4*>(fr + (i < 6 ? lo[j] : hi[j]) + i);
     tap(j, i, make_float2(w.x, w.y));

@@ -41,6 +41,11 @@
 // block), z in shared memory beside ZA (2 blocks per SM), two ZA buffers with
 // one barrier per pattern (2 blocks per SM), four blocks per SM (register
 // spills), and the taps' weights in __constant__ memory.
+//
+// kFast (DecoderConfig.fast_math; ops/precision.py, B4) changes only the
+// matched filter, as the JAX kernel's fast mode (pallas_demod.py:159-160,
+// 275-276): the tail reads the FP32 pattern sums and the taps rounded to
+// bf16 (warp_tail<true>, load_taps<true>) and sums in FP32.
 
 #include "common.cuh"
 
@@ -75,6 +80,7 @@ constexpr int kThreads = 288;  // thread j holds columns j, j + 288, j + 576
 constexpr int kWarps = kThreads / 32;
 constexpr int kCols = kFrameLen / kThreads;
 
+template <bool kFast>
 __global__ void __launch_bounds__(kThreads, 3)
 demod_kernel(const float2* __restrict__ c, const float2* __restrict__ W,
              const int* __restrict__ pos, const float2* __restrict__ sync_conj,
@@ -100,8 +106,7 @@ demod_kernel(const float2* __restrict__ c, const float2* __restrict__ W,
     }
   }
   float pp[12];
-#pragma unroll
-  for (int i = 0; i < 12; ++i) pp[i] = pp12[i];
+  load_taps<kFast>(pp12, pp);
   float* stage = reinterpret_cast<float*>(za + kSumLen) + warp * kSoftbits;  // the tail's
 
   unsigned held = 0;
@@ -139,7 +144,7 @@ demod_kernel(const float2* __restrict__ c, const float2* __restrict__ W,
         warp_reject(sb_out + row * 128, nbad_out + row);
         continue;
       }
-      warp_tail(za + ps, sync_conj, pp, sync_pm, stage, sb_out + row * 128, nbad_out + row);
+      warp_tail<kFast>(za + ps, sync_conj, pp, sync_pm, stage, sb_out + row * 128, nbad_out + row);
     }
   }
 }
@@ -147,28 +152,38 @@ demod_kernel(const float2* __restrict__ c, const float2* __restrict__ W,
 // ZA_p with its copy, then the tails' output staging
 constexpr int kSmemBytes = kSumLen * sizeof(float2) + kWarps * kSoftbits * sizeof(float);
 
-}  // namespace
-
-// Plain C interface (ctypes). Launches on `stream`; returns the first CUDA
-// error of the shared-memory attributes or the launch.
-extern "C" int msk_demod(const void* c, const void* W, const void* pos, const void* sync_conj,
-                         const void* pp12, const void* masks, const void* sync_pm,
-                         void* sb_out, void* nbad_out, int n_win, int F, int P, int K,
-                         void* stream) {
-  if (n_win <= 0 || F <= 0 || P <= 0 || K <= 0) return 0;
+template <bool kFast>
+cudaError_t launch(const void* c, const void* W, const void* pos, const void* sync_conj,
+                   const void* pp12, const void* masks, const void* sync_pm, void* sb_out,
+                   void* nbad_out, int n_win, int F, int P, int K, cudaStream_t stream) {
   // the most shared memory per SM, so that three blocks fit
-  cudaError_t err = cudaFuncSetAttribute(demod_kernel,
+  cudaError_t err = cudaFuncSetAttribute(demod_kernel<kFast>,
                                          cudaFuncAttributePreferredSharedMemoryCarveout,
                                          cudaSharedmemCarveoutMaxShared);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(demod_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(demod_kernel<kFast>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  demod_kernel<<<n_win * F, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  if (err != cudaSuccess) return err;
+  demod_kernel<kFast><<<n_win * F, kThreads, kSmemBytes, stream>>>(
       static_cast<const float2*>(c), static_cast<const float2*>(W),
       static_cast<const int*>(pos), static_cast<const float2*>(sync_conj),
       static_cast<const float*>(pp12), static_cast<const int*>(masks),
       static_cast<const int*>(sync_pm), static_cast<float*>(sb_out),
       static_cast<int*>(nbad_out), F, P, K);
-  return static_cast<int>(cudaGetLastError());
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C interface (ctypes). Launches on `stream`; fast != 0: the kFast
+// instantiation. Returns the first CUDA error of the shared-memory
+// attributes or the launch.
+extern "C" int msk_demod(const void* c, const void* W, const void* pos, const void* sync_conj,
+                         const void* pp12, const void* masks, const void* sync_pm,
+                         void* sb_out, void* nbad_out, int n_win, int F, int P, int K,
+                         int fast, void* stream) {
+  if (n_win <= 0 || F <= 0 || P <= 0 || K <= 0) return 0;
+  const auto run = fast ? launch<true> : launch<false>;
+  return static_cast<int>(run(c, W, pos, sync_conj, pp12, masks, sync_pm, sb_out, nbad_out,
+                              n_win, F, P, K, static_cast<cudaStream_t>(stream)));
 }

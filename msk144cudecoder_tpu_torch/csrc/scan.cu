@@ -47,7 +47,20 @@
 //     lane per slice counts the slices that beat it, and a lane whose rank
 //     is below k writes its slot. Six block barriers in all, none per
 //     pattern.
-// No tensor cores: the port computes in FP32 with TF32 off.
+// No tensor cores in either instantiation.
+//
+// kFast (DecoderConfig.fast_math; ops/precision.py, B1) is the JAX kernel's
+// fast correlation, pallas_scan.py:87-136, 291-294, 324-327: the window is
+// staged as bf16 planes (cr, ci) and cd = cr - ci (6 bytes a sample in the
+// window's place), the tile's taps as float4 (br, bi, br + bi) rounded to
+// bf16, and each lag sums three products m1 = cr br, m2 = ci bi, m3 = cd bs
+// in FP32 (each product of two bf16 values is exact, so a fused multiply-add
+// rounds only the sum); G's sum is then (m1 + m2, m3 - m1 + m2), the wrap
+// correction D the same over the wrapped taps. Three sums a lag in place of
+// two raise the registers, so the fast blocks run three to an SM (a few
+// spills at the widest tile); measured slower on the H100 at the main
+// path's 64 windows: two blocks per SM without spills, and tiles of two
+// frequencies. Everything after G is the FP32 instantiation's code.
 
 #include "common.cuh"
 
@@ -113,8 +126,16 @@ __device__ __forceinline__ void pattern_metrics(const float2* H, int l, int dept
   }
 }
 
-template <int DEC, int FT>
-__global__ void __launch_bounds__(kThreads, 4)
+// kFast: the window's bf16 planes (cr, ci) and cd in the window's place, and
+// the tile's taps (br, bi, bs) after them: 6 bytes a sample plus 16 a tap
+// and frequency, within the 8 bytes a sample G of the tile takes later.
+constexpr int kFastPlaneBytes = kWindowLen * 6;
+static_assert(kFastPlaneBytes % 16 == 0, "the taps after the planes are 16-byte aligned");
+static_assert(kFastPlaneBytes + kSyncTaps * 4 * 16 <= kWindowLen * 8,
+              "the fast staging fits in the window's place");
+
+template <int DEC, int FT, bool kFast>
+__global__ void __launch_bounds__(kThreads, kFast ? 3 : 4)
 scan_kernel(const float2* __restrict__ c, const float2* __restrict__ B,
             const float2* __restrict__ E_dec, const float2* __restrict__ chi,
             int* __restrict__ pos_out, float* __restrict__ xb_out, int F, int depth,
@@ -143,39 +164,89 @@ scan_kernel(const float2* __restrict__ c, const float2* __restrict__ B,
   const int nf = min(FT, F - f0);  // the last tile of a window is ragged
   const int tid = threadIdx.x;
 
+  // kFast's staging (see kFastPlaneBytes): sample s of the polyphase
+  // order at cri[s] = (cr, ci) and cdp[s] = cd; tap (i, ft) at Bf[i * FT + ft]
+  __nv_bfloat162* cri = reinterpret_cast<__nv_bfloat162*>(smem);
+  __nv_bfloat16* cdp = reinterpret_cast<__nv_bfloat16*>(cri + kWindowLen);
+  float4* Bf = reinterpret_cast<float4*>(reinterpret_cast<char*>(smem) + kFastPlaneBytes);
+
   const float4* cw = reinterpret_cast<const float4*>(c + static_cast<size_t>(w) * kWindowLen);
   for (int v = tid; v < kWindowLen / 2; v += kThreads) {
     const float4 q = cw[v];
     const int s = 2 * v;
-    cs[(s % DEC) * n2 + s / DEC] = make_float2(q.x, q.y);
-    cs[((s + 1) % DEC) * n2 + (s + 1) / DEC] = make_float2(q.z, q.w);
+    const int s0 = (s % DEC) * n2 + s / DEC;
+    const int s1 = ((s + 1) % DEC) * n2 + (s + 1) / DEC;
+    if constexpr (kFast) {
+      cri[s0] = __floats2bfloat162_rn(q.x, q.y);
+      cdp[s0] = __float2bfloat16_rn(q.x - q.y);
+      cri[s1] = __floats2bfloat162_rn(q.z, q.w);
+      cdp[s1] = __float2bfloat16_rn(q.z - q.w);
+    } else {
+      cs[s0] = make_float2(q.x, q.y);
+      cs[s1] = make_float2(q.z, q.w);
+    }
   }
   for (int j = tid; j < kSyncTaps * FT; j += kThreads) {
     const int i = j / FT;
     const int ft = j - i * FT;
-    Bs[j] = ft < nf ? B[i * F + f0 + ft] : make_float2(0.f, 0.f);
+    const float2 b = ft < nf ? B[i * F + f0 + ft] : make_float2(0.f, 0.f);
+    if constexpr (kFast)
+      Bf[j] = make_float4(round_bf16(b.x), round_bf16(b.y), round_bf16(b.x + b.y), 0.f);
+    else
+      Bs[j] = b;
   }
   __syncthreads();
 
   // the correlation at the lags whose taps never wrap: lags tid + 256u of
   // every frequency of the tile, all in registers, taps in order 0..41
   float2 acc[kLags][FT];
+  if constexpr (kFast) {
+    float m1[kLags][FT], m2[kLags][FT], m3[kLags][FT];
 #pragma unroll
-  for (int u = 0; u < kLags; ++u)
+    for (int u = 0; u < kLags; ++u)
 #pragma unroll
-    for (int ft = 0; ft < FT; ++ft) acc[u][ft] = make_float2(0.f, 0.f);
+      for (int ft = 0; ft < FT; ++ft) m1[u][ft] = m2[u][ft] = m3[u][ft] = 0.f;
 #pragma unroll 6
-  for (int i = 0; i < kSyncTaps; ++i) {
-    // sample dec*l + i of lag l sits at (i % dec) * n2 + l + i / dec
-    const float2* ci = cs + (i % DEC) * n2 + i / DEC + tid;
-    float2 b[FT];
+    for (int i = 0; i < kSyncTaps; ++i) {
+      const int off = (i % DEC) * n2 + i / DEC + tid;
+      float4 b[FT];
 #pragma unroll
-    for (int ft = 0; ft < FT; ++ft) b[ft] = Bs[i * FT + ft];
+      for (int ft = 0; ft < FT; ++ft) b[ft] = Bf[i * FT + ft];
 #pragma unroll
-    for (int u = 0; u < kLags; ++u) {
-      const float2 a = ci[u * kThreads];
+      for (int u = 0; u < kLags; ++u) {
+        const float2 a = __bfloat1622float2(cri[off + u * kThreads]);
+        const float d = __bfloat162float(cdp[off + u * kThreads]);
 #pragma unroll
-      for (int ft = 0; ft < FT; ++ft) acc[u][ft] = cadd(acc[u][ft], cmul_conj(a, b[ft]));
+        for (int ft = 0; ft < FT; ++ft) {
+          m1[u][ft] += a.x * b[ft].x;
+          m2[u][ft] += a.y * b[ft].y;
+          m3[u][ft] += d * b[ft].z;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLags; ++u)
+#pragma unroll
+      for (int ft = 0; ft < FT; ++ft)
+        acc[u][ft] = make_float2(m1[u][ft] + m2[u][ft], m3[u][ft] - m1[u][ft] + m2[u][ft]);
+  } else {
+#pragma unroll
+    for (int u = 0; u < kLags; ++u)
+#pragma unroll
+      for (int ft = 0; ft < FT; ++ft) acc[u][ft] = make_float2(0.f, 0.f);
+#pragma unroll 6
+    for (int i = 0; i < kSyncTaps; ++i) {
+      // sample dec*l + i of lag l sits at (i % dec) * n2 + l + i / dec
+      const float2* ci = cs + (i % DEC) * n2 + i / DEC + tid;
+      float2 b[FT];
+#pragma unroll
+      for (int ft = 0; ft < FT; ++ft) b[ft] = Bs[i * FT + ft];
+#pragma unroll
+      for (int u = 0; u < kLags; ++u) {
+        const float2 a = ci[u * kThreads];
+#pragma unroll
+        for (int ft = 0; ft < FT; ++ft) acc[u][ft] = cadd(acc[u][ft], cmul_conj(a, b[ft]));
+      }
     }
   }
   // one of the last lags, whose wrapped taps also carry chi
@@ -185,13 +256,36 @@ scan_kernel(const float2* __restrict__ c, const float2* __restrict__ B,
   float2 tail = make_float2(0.f, 0.f);
   if (has_tail) {
     float2 D = make_float2(0.f, 0.f);
-    for (int i = 0; i < kSyncTaps; ++i) {
-      int s = DEC * tail_l + i;
-      const bool wrapped = s >= kWindowLen;
-      s -= wrapped ? kWindowLen : 0;
-      const float2 v = cmul_conj(cs[(s % DEC) * n2 + s / DEC], Bs[i * FT + tail_ft]);
-      tail = cadd(tail, v);
-      if (wrapped) D = cadd(D, v);
+    if constexpr (kFast) {
+      float r1 = 0.f, r2 = 0.f, r3 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
+      for (int i = 0; i < kSyncTaps; ++i) {
+        int s = DEC * tail_l + i;
+        const bool wrapped = s >= kWindowLen;
+        s -= wrapped ? kWindowLen : 0;
+        const int at = (s % DEC) * n2 + s / DEC;
+        const float2 a = __bfloat1622float2(cri[at]);
+        const float4 b = Bf[i * FT + tail_ft];
+        const float p1 = a.x * b.x, p2 = a.y * b.y, p3 = __bfloat162float(cdp[at]) * b.z;
+        r1 += p1;
+        r2 += p2;
+        r3 += p3;
+        if (wrapped) {
+          d1 += p1;
+          d2 += p2;
+          d3 += p3;
+        }
+      }
+      tail = make_float2(r1 + r2, r3 - r1 + r2);
+      D = make_float2(d1 + d2, d3 - d1 + d2);
+    } else {
+      for (int i = 0; i < kSyncTaps; ++i) {
+        int s = DEC * tail_l + i;
+        const bool wrapped = s >= kWindowLen;
+        s -= wrapped ? kWindowLen : 0;
+        const float2 v = cmul_conj(cs[(s % DEC) * n2 + s / DEC], Bs[i * FT + tail_ft]);
+        tail = cadd(tail, v);
+        if (wrapped) D = cadd(D, v);
+      }
     }
     tail = cadd(tail, cmul(chi[f0 + tail_ft], D));
   }
@@ -315,35 +409,40 @@ struct ScanArgs {
   cudaStream_t stream;
 };
 
-template <int DEC, int FT>
+template <int DEC, int FT, bool kFast>
 cudaError_t launch(const ScanArgs& a) {
   const int blocks = a.n_win * ((a.F + FT - 1) / FT);
-  scan_kernel<DEC, FT><<<blocks, kThreads, smem_bytes(FT, a.depth), a.stream>>>(
+  scan_kernel<DEC, FT, kFast><<<blocks, kThreads, smem_bytes(FT, a.depth), a.stream>>>(
       a.c, a.B, a.E_dec, a.chi, a.pos_out, a.xb_out, a.F, a.depth, a.num_cand);
   return cudaGetLastError();
 }
 
-template <int DEC>
+template <int DEC, bool kFast>
 cudaError_t launch_tile(const ScanArgs& a, int freq_tile) {
-  if (freq_tile == 1) return launch<DEC, 1>(a);
+  if (freq_tile == 1) return launch<DEC, 1, kFast>(a);
   if constexpr (DEC >= 2) {
-    if (freq_tile == 2) return launch<DEC, 2>(a);
+    if (freq_tile == 2) return launch<DEC, 2, kFast>(a);
   }
   if constexpr (DEC >= 4) {
-    if (freq_tile == 4) return launch<DEC, 4>(a);
+    if (freq_tile == 4) return launch<DEC, 4, kFast>(a);
   }
   return cudaErrorInvalidValue;  // a tile wider than dec does not fit
+}
+
+template <int DEC>
+cudaError_t launch_mode(const ScanArgs& a, int freq_tile, bool fast) {
+  return fast ? launch_tile<DEC, true>(a, freq_tile) : launch_tile<DEC, false>(a, freq_tile);
 }
 
 }  // namespace
 
 // Plain C interface (ctypes). Launches on `stream`; returns
 // cudaGetLastError() after the launch. freq_tile: frequencies
-// per block (1, 2 or 4, at most dec; the wrapper's scan_tile). c must be
-// 16-byte aligned.
+// per block (1, 2 or 4, at most dec; the wrapper's scan_tile); fast != 0:
+// the kFast instantiation. c must be 16-byte aligned.
 extern "C" int msk_scan(const void* c, const void* B, const void* E_dec, const void* chi,
                         void* pos_out, void* xb_out, int n_win, int F, int depth,
-                        int num_cand, int dec, int freq_tile, void* stream) {
+                        int num_cand, int dec, int freq_tile, int fast, void* stream) {
   if (n_win <= 0 || F <= 0) return 0;
   if (depth < 1 || depth > kMaxDepth || num_cand < 1 || num_cand > 8 ||
       reinterpret_cast<uintptr_t>(c) % 16 != 0)
@@ -354,9 +453,9 @@ extern "C" int msk_scan(const void* c, const void* B, const void* E_dec, const v
                    num_cand, static_cast<cudaStream_t>(stream)};
   cudaError_t err;
   switch (dec) {
-    case 1: err = launch_tile<1>(a, freq_tile); break;
-    case 2: err = launch_tile<2>(a, freq_tile); break;
-    case 4: err = launch_tile<4>(a, freq_tile); break;
+    case 1: err = launch_mode<1>(a, freq_tile, fast != 0); break;
+    case 2: err = launch_mode<2>(a, freq_tile, fast != 0); break;
+    case 4: err = launch_mode<4>(a, freq_tile, fast != 0); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -37,6 +37,22 @@
 // against bank conflicts (the index arithmetic cost more than the
 // conflicts), ten warps per block, and the taps' weights in __constant__
 // memory.
+//
+// kFast (DecoderConfig.fast_math; ops/precision.py, B2) rounds where the JAX
+// kernel's fast mode does (pallas_survivor.py:107-109, 191-197, 285-296,
+// 334-351): the block stages its window as bf16 pairs (half the bytes), the
+// gamma lanes read W[f, 128q], W[f, r], W[f, 864m] and conj(1 + chi) rounded
+// to bf16, form gamma in FP32 without fused multiply-adds (as the plain
+// version) and round it; the mix and the pattern sum are in bf16; the
+// carrier is W[f, 128j] W[f, r] in bf16 from a per-warp table of the 135
+// rounded values (in place of the cp.async of W[f, l]), and the frame times
+// the carrier is in bf16; the tail takes bf16 operands (warp_tail<true>).
+// The bf16 arithmetic runs on packed pairs (common.cuh cmul_bf16, one
+// rounding per instruction, equal bit for bit to the plain version's
+// float32-then-round): a sample and frame costs two byte permutes, two
+// multiplies and two adds, and the 27 sums of a lane take 27 registers. The
+// same arithmetic by float32 operations and a conversion after each was
+// 3.3x the FP32 instantiation's time at the main path's 64 x 512 rows.
 
 #include "common.cuh"
 
@@ -45,9 +61,63 @@ namespace {
 using namespace msk;
 
 constexpr int kMaxWarps = 8;
-constexpr int kWindowBytes = kWindowLen * static_cast<int>(sizeof(float2));
 constexpr int kFrameBytes = kFrameLen * static_cast<int>(sizeof(float2));
+constexpr int kStageBytes = kSoftbits * static_cast<int>(sizeof(float));
+constexpr int kCarrierTab = 136;  // kFast: W[f, r], r < 128, then W[f, 128j], j < 7 (and a pad)
+constexpr int kCarrierBytes = kCarrierTab * static_cast<int>(sizeof(unsigned));
 
+// The window's bytes in shared memory: complex64, or packed bf16 pairs in kFast.
+__host__ __device__ constexpr int window_bytes(bool fast) {
+  return kWindowLen * static_cast<int>(fast ? sizeof(unsigned) : sizeof(float2));
+}
+
+// A block's shared memory: the window, the warps' frames, their tails'
+// output staging and, in kFast, their carrier tables.
+constexpr int smem_bytes(bool fast, int warps) {
+  return window_bytes(fast) + warps * (kFrameBytes + kStageBytes + (fast ? kCarrierBytes : 0));
+}
+
+// The mix and the pattern sum of one sample, window sample times gamma added
+// to the lane's sum: in float32 (cadd(acc, cmul(src, g))), or in kFast on
+// packed bf16 pairs (add_bf16x2(acc, cmul_bf16(src, g, i g))). word() is a
+// lane's gamma as the warp shuffles it, take() frame m's from lane m.
+template <bool kFast>
+struct Mix;
+
+template <>
+struct Mix<false> {
+  using Sample = float2;
+  using Word = float2;
+  using Gamma = float2;
+  static __device__ __forceinline__ Sample zero() { return make_float2(0.f, 0.f); }
+  static __device__ __forceinline__ Word word(float2 g) { return g; }
+  static __device__ __forceinline__ Gamma take(Word w, int m) {
+    return make_float2(__shfl_sync(0xffffffffu, w.x, m), __shfl_sync(0xffffffffu, w.y, m));
+  }
+  static __device__ __forceinline__ Sample mac(Sample acc, Sample src, Gamma g) {
+    return cadd(acc, cmul(src, g));
+  }
+};
+
+template <>
+struct Mix<true> {
+  using Sample = unsigned;
+  using Word = unsigned;
+  struct Gamma {
+    unsigned g, gi;  // gamma and i * gamma, packed bf16
+  };
+  static __device__ __forceinline__ Sample zero() { return 0u; }
+  static __device__ __forceinline__ Word word(float2 g) { return pack_bf16(g); }
+  static __device__ __forceinline__ Gamma take(Word w, int m) {
+    const unsigned g = __shfl_sync(0xffffffffu, w, m);
+    return {g, rot_bf16(g)};
+  }
+  static __device__ __forceinline__ Sample mac(Sample acc, Sample src, Gamma g) {
+    return add_bf16x2(acc, cmul_bf16(src, g.g, g.gi));
+  }
+};
+
+template <bool kFast>
 __global__ void __launch_bounds__(32 * kMaxWarps, 2)
 survivor_kernel(const float2* __restrict__ c, const float2* __restrict__ W,
                 const float2* __restrict__ chi, const int* __restrict__ pos,
@@ -57,21 +127,29 @@ survivor_kernel(const float2* __restrict__ c, const float2* __restrict__ W,
                 float* __restrict__ sb_out, int* __restrict__ nbad_out, int S, int F,
                 int rows_per_block) {
   extern __shared__ float4 smem4[];
-  float2* smem = reinterpret_cast<float2*>(smem4);
+  char* smem = reinterpret_cast<char*>(smem4);
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.y;
-  float2* win = smem;                                      // the window, once per block
-  float2* frame = smem + kWindowLen + warp * kFrameLen;  // this warp's frame
+  float2* win = reinterpret_cast<float2*>(smem);  // the window, once per block
+  unsigned* winb = reinterpret_cast<unsigned*>(smem);  // kFast's, packed bf16
+  float2* frame =  // this warp's frame
+      reinterpret_cast<float2*>(smem + window_bytes(kFast)) + warp * kFrameLen;
   const float2* cw = c + static_cast<size_t>(b) * kWindowLen;
   float pp[12];
-#pragma unroll
-  for (int i = 0; i < 12; ++i) pp[i] = pp12[i];
-  // the tail's output staging, after the frames
-  float* stage =
-      reinterpret_cast<float*>(smem + kWindowLen + warps * kFrameLen) + warp * kSoftbits;
-  for (int t = threadIdx.x; t < kWindowLen; t += blockDim.x) cp_async8(win + t, cw + t);
+  load_taps<kFast>(pp12, pp);
+  // the tail's output staging, after the frames; kFast's carrier table after it
+  float* stage = reinterpret_cast<float*>(smem + window_bytes(kFast) + warps * kFrameBytes) +
+                 warp * kSoftbits;
+  unsigned* ctab = reinterpret_cast<unsigned*>(smem + window_bytes(kFast) +
+                                               warps * (kFrameBytes + kStageBytes)) +
+                   warp * kCarrierTab;
+  if constexpr (kFast) {
+    for (int t = threadIdx.x; t < kWindowLen; t += blockDim.x) winb[t] = pack_bf16(cw[t]);
+  } else {
+    for (int t = threadIdx.x; t < kWindowLen; t += blockDim.x) cp_async8(win + t, cw + t);
+  }
 
   // a row's indices are loaded one row ahead
   const int s_end = min(S, (blockIdx.x + 1) * rows_per_block);
@@ -100,18 +178,30 @@ survivor_kernel(const float2* __restrict__ c, const float2* __restrict__ W,
       continue;
     }
     const float2* Wf = W + static_cast<size_t>(f_c) * kWindowLen;
-    for (int l = lane; l < kFrameLen; l += 32) cp_async8(frame + l, Wf + l);  // W[f, l]
+    if constexpr (kFast) {  // the carrier's table values, rounded
+      for (int r = lane; r < 128; r += 32) ctab[r] = pack_bf16(Wf[r]);
+      if (lane < 7) ctab[128 + lane] = pack_bf16(Wf[128 * lane]);
+    } else {
+      for (int l = lane; l < kFrameLen; l += 32) cp_async8(frame + l, Wf + l);  // W[f, l]
+    }
 
     // gamma[m, 0..1] on lane m < 6; the warp takes frame m's by shuffle
     float2 g0 = make_float2(0.f, 0.f), g1 = g0;
     int mk = 0;
     if (lane < kFrames) {
       mk = masks[p_c * kFrames + lane];
-      const float2 w_pos = cmul(Wf[128 * (ps_c / 128)], Wf[ps_c % 128]);
       const float2 ch = chi[f_c];
       const float2 phi = make_float2(1.f + ch.x, -ch.y);  // conj(1 + chi)
-      g0 = cmul(cmul(make_float2(static_cast<float>(mk), 0.f), w_pos), Wf[kFrameLen * lane]);
-      g1 = cmul(g0, phi);
+      const float2 m = make_float2(static_cast<float>(mk), 0.f);
+      if constexpr (kFast) {  // g0, g1 rounded to bf16 when packed below
+        const float2 w_pos = cmul_rn(round_bf16(Wf[128 * (ps_c / 128)]), round_bf16(Wf[ps_c % 128]));
+        g0 = cmul_rn(cmul_rn(m, w_pos), round_bf16(Wf[kFrameLen * lane]));
+        g1 = cmul_rn(g0, round_bf16(phi));
+      } else {
+        const float2 w_pos = cmul(Wf[128 * (ps_c / 128)], Wf[ps_c % 128]);
+        g0 = cmul(cmul(m, w_pos), Wf[kFrameLen * lane]);
+        g1 = cmul(g0, phi);
+      }
     }
     const unsigned active = __ballot_sync(0xffffffffu, mk != 0);
 
@@ -119,73 +209,97 @@ survivor_kernel(const float2* __restrict__ c, const float2* __restrict__ W,
     // registers over the active frames in ascending m (a zero gamma would
     // add an exact zero, so inactive frames are skipped); a frame's samples
     // wrap (pos + 864m + l >= N, gamma[m, 1]) for none, all or a suffix of l
-    float2 acc[kFrameLen / 32];
+    using P = Mix<kFast>;
+    const typename P::Sample* wsrc = reinterpret_cast<const typename P::Sample*>(smem);
+    const typename P::Word w0 = P::word(g0), w1 = P::word(g1);
+    typename P::Sample acc[kFrameLen / 32];
 #pragma unroll
-    for (int n = 0; n < kFrameLen / 32; ++n) acc[n] = make_float2(0.f, 0.f);
+    for (int n = 0; n < kFrameLen / 32; ++n) acc[n] = P::zero();
 #pragma unroll
     for (int m = 0; m < kFrames; ++m) {
       if (!(active >> m & 1u)) continue;
-      const float2 ga = make_float2(__shfl_sync(0xffffffffu, g0.x, m),
-                                    __shfl_sync(0xffffffffu, g0.y, m));
-      const float2 gb = make_float2(__shfl_sync(0xffffffffu, g1.x, m),
-                                    __shfl_sync(0xffffffffu, g1.y, m));
+      const typename P::Gamma ga = P::take(w0, m), gb = P::take(w1, m);
       const int start = ps_c + kFrameLen * m;
       if (start + kFrameLen <= kWindowLen) {
-        const float2* src = win + start + lane;
+        const typename P::Sample* src = wsrc + start + lane;
 #pragma unroll
-        for (int n = 0; n < kFrameLen / 32; ++n) acc[n] = cadd(acc[n], cmul(src[32 * n], ga));
+        for (int n = 0; n < kFrameLen / 32; ++n) acc[n] = P::mac(acc[n], src[32 * n], ga);
       } else if (start >= kWindowLen) {
-        const float2* src = win + start - kWindowLen + lane;
+        const typename P::Sample* src = wsrc + start - kWindowLen + lane;
 #pragma unroll
-        for (int n = 0; n < kFrameLen / 32; ++n) acc[n] = cadd(acc[n], cmul(src[32 * n], gb));
+        for (int n = 0; n < kFrameLen / 32; ++n) acc[n] = P::mac(acc[n], src[32 * n], gb);
       } else {
 #pragma unroll
         for (int n = 0; n < kFrameLen / 32; ++n) {
           const int idx = start + lane + 32 * n;
           const bool wrap = idx >= kWindowLen;
-          acc[n] = cadd(acc[n], cmul(win[wrap ? idx - kWindowLen : idx], wrap ? gb : ga));
+          acc[n] = P::mac(acc[n], wsrc[wrap ? idx - kWindowLen : idx], wrap ? gb : ga);
         }
       }
     }
 
-    cp_async_wait_all();  // each lane reads back only the W[f, l] it copied
+    // times the carrier W[f, l]
+    if constexpr (kFast) {
+      __syncwarp();  // the carrier table is written
 #pragma unroll
-    for (int n = 0; n < kFrameLen / 32; ++n) {
-      const int l = lane + 32 * n;
-      frame[l] = cmul(acc[n], frame[l]);
+      for (int n = 0; n < kFrameLen / 32; ++n) {
+        const int l = lane + 32 * n;  // W[f, l] = W[f, 128j] W[f, r], l = 128j + r, in bf16
+        const unsigned r = ctab[l & 127];
+        const unsigned car = cmul_bf16(ctab[128 + (l >> 7)], r, rot_bf16(r));
+        frame[l] = unpack_bf16(cmul_bf16(acc[n], car, rot_bf16(car)));
+      }
+    } else {
+      cp_async_wait_all();  // each lane reads back only the W[f, l] it copied
+#pragma unroll
+      for (int n = 0; n < kFrameLen / 32; ++n) {
+        const int l = lane + 32 * n;
+        frame[l] = cmul(acc[n], frame[l]);
+      }
     }
     __syncwarp();
 
-    warp_tail(frame, sync_conj, pp, sync_pm, stage, sb_out + row * 128, nbad_out + row);
+    warp_tail<kFast>(frame, sync_conj, pp, sync_pm, stage, sb_out + row * 128, nbad_out + row);
     __syncwarp();  // every lane is done with the frame before the next row's copy
   }
 }
 
-}  // namespace
-
-// Plain C interface (ctypes). Launches on `stream`: blocks of
-// rows_per_block rows of one window, on min(rows_per_block, 8) warps.
-// Returns the first CUDA error of the shared-memory opt-in or the launch.
-extern "C" int msk_survivor(const void* c, const void* W, const void* chi, const void* pos,
-                            const void* f_idx, const void* p_idx, const void* sync_conj,
-                            const void* pp12, const void* masks, const void* sync_pm,
-                            void* sb_out, void* nbad_out, int n_win, int S, int F,
-                            int rows_per_block, void* stream) {
-  if (n_win <= 0 || S <= 0) return 0;
-  if (rows_per_block < 1 || n_win > 65535) return static_cast<int>(cudaErrorInvalidValue);
+template <bool kFast>
+cudaError_t launch(const void* c, const void* W, const void* chi, const void* pos,
+                   const void* f_idx, const void* p_idx, const void* sync_conj,
+                   const void* pp12, const void* masks, const void* sync_pm, void* sb_out,
+                   void* nbad_out, int n_win, int S, int F, int rows_per_block,
+                   cudaStream_t stream) {
   const int warps = rows_per_block < kMaxWarps ? rows_per_block : kMaxWarps;
-  const int smem =
-      kWindowBytes + warps * (kFrameBytes + kSoftbits * static_cast<int>(sizeof(float)));
-  cudaError_t err = cudaFuncSetAttribute(survivor_kernel,
+  const int smem = smem_bytes(kFast, warps);
+  cudaError_t err = cudaFuncSetAttribute(survivor_kernel<kFast>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) return err;
   const dim3 grid((S + rows_per_block - 1) / rows_per_block, n_win);
-  survivor_kernel<<<grid, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
+  survivor_kernel<kFast><<<grid, 32 * warps, smem, stream>>>(
       static_cast<const float2*>(c), static_cast<const float2*>(W),
       static_cast<const float2*>(chi), static_cast<const int*>(pos),
       static_cast<const int*>(f_idx), static_cast<const int*>(p_idx),
       static_cast<const float2*>(sync_conj), static_cast<const float*>(pp12),
       static_cast<const int*>(masks), static_cast<const int*>(sync_pm),
       static_cast<float*>(sb_out), static_cast<int*>(nbad_out), S, F, rows_per_block);
-  return static_cast<int>(cudaGetLastError());
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C interface (ctypes). Launches on `stream`: blocks of
+// rows_per_block rows of one window, on min(rows_per_block, 8) warps; fast
+// != 0: the kFast instantiation. Returns the first CUDA error of the
+// shared-memory opt-in or the launch.
+extern "C" int msk_survivor(const void* c, const void* W, const void* chi, const void* pos,
+                            const void* f_idx, const void* p_idx, const void* sync_conj,
+                            const void* pp12, const void* masks, const void* sync_pm,
+                            void* sb_out, void* nbad_out, int n_win, int S, int F,
+                            int rows_per_block, int fast, void* stream) {
+  if (n_win <= 0 || S <= 0) return 0;
+  if (rows_per_block < 1 || n_win > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const auto run = fast ? launch<true> : launch<false>;
+  return static_cast<int>(run(c, W, chi, pos, f_idx, p_idx, sync_conj, pp12, masks, sync_pm,
+                              sb_out, nbad_out, n_win, S, F, rows_per_block,
+                              static_cast<cudaStream_t>(stream)));
 }

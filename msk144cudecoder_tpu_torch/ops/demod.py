@@ -18,7 +18,7 @@ import torch
 
 from .. import constants as C
 from . import kernels
-from .softbits import channel_softbits, gather_frames, pattern_average
+from .softbits import gather_frames, pattern_average, sync_near_zero, sync_softbits
 from .softbits import demod_candidates as demod_candidates_plain
 from .tables import DemodTables
 
@@ -30,11 +30,13 @@ __all__ = ["demod_candidates", "demod_candidates_cuda", "demod_candidates_plain"
 
 
 def demod_candidates_cuda(c: torch.Tensor, W: torch.Tensor, pos: torch.Tensor,
-                          dt: DemodTables) -> tuple[torch.Tensor, torch.Tensor]:
+                          dt: DemodTables, fast: bool = False
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel B4 (csrc/demod.cu): one block per (window, frequency), all
-    B * F blocks in one launch, a pattern's candidates on a warp each. c (B, N) complex64; W (F, N) complex64; pos
-    (B, F, P, k) int32 with P <= 8 and k <= 8, all contiguous on one CUDA
-    device. Returns (softbits (B, F, P, k, 128) float32, nbadsync
+    B * F blocks in one launch, a pattern's candidates on a warp each; fast
+    launches its bf16 instantiation. c (B, N) complex64; W (F, N) complex64;
+    pos (B, F, P, k) int32 with P <= 8 and k <= 8, all contiguous on one
+    CUDA device. Returns (softbits (B, F, P, k, 128) float32, nbadsync
     (B, F, P, k) int32)."""
     nw = c.shape[0] if c.dim() == 2 else -1
     F = W.shape[0]
@@ -59,49 +61,55 @@ def demod_candidates_cuda(c: torch.Tensor, W: torch.Tensor, pos: torch.Tensor,
             rc = lib.msk_demod(c.data_ptr(), W.data_ptr(), pos.data_ptr(),
                                dt.sync_conj.data_ptr(), dt.pp12.data_ptr(),
                                dt.masks.data_ptr(), dt.sync_pm.data_ptr(),
-                               sb.data_ptr(), nbad.data_ptr(), nw, F, P, k,
+                               sb.data_ptr(), nbad.data_ptr(), nw, F, P, k, int(fast),
                                kernels.stream_ptr(c.device))
         kernels.raise_on_error("msk_demod", rc)
-        kernels.count_launch(demod_candidates_cuda)
+        kernels.count_launch(demod_candidates_cuda, fast)
     return sb, nbad
 
 
 demod_candidates_cuda.launches = 0
+demod_candidates_cuda.launches_fast = 0
+
+
+def candidate_frames_plain(c: torch.Tensor, W: torch.Tensor, pos: torch.Tensor,
+                           rows: torch.Tensor) -> torch.Tensor:
+    """The frames (R, 864) complex64 of the candidates rows (R, 4) =
+    (window, f, p, j) indices into pos (B, F, P, k), by the plain version."""
+    b, f, p, j = (rows[:, i].long() for i in range(4))
+    za = pattern_average((c[b] * W[f])[:, None, :], pos.shape[2])[:, 0]  # (R, P, N)
+    za = za[torch.arange(len(rows), device=c.device), p]
+    return gather_frames(za[:, None, None, :], pos[b, f, p, j][:, None, None, None])[:, 0, 0, 0]
 
 
 def sync_softbits_plain(c: torch.Tensor, W: torch.Tensor, pos: torch.Tensor,
-                        rows: torch.Tensor, dt: DemodTables) -> torch.Tensor:
+                        rows: torch.Tensor, dt: DemodTables, fast: bool = False) -> torch.Tensor:
     """The 16 unscaled sync-bit softbits (channel bits 0-7 and 56-63) of the
     candidates rows (R, 4) = (window, f, p, j) indices into pos (B, F, P, k),
     by the plain version: nbadsync counts their signs, so a kernel and the
     plain version can disagree on it only where one of them is near 0."""
-    b, f, p, j = (rows[:, i].long() for i in range(4))
-    za = pattern_average((c[b] * W[f])[:, None, :], pos.shape[2])[:, 0]  # (R, P, N)
-    za = za[torch.arange(len(rows), device=c.device), p]
-    frames = gather_frames(za[:, None, None, :], pos[b, f, p, j][:, None, None, None])
-    sb = channel_softbits(frames[:, 0, 0, 0], dt)
-    return torch.cat([sb[:, C.FIRST_SYNC_BIT : C.FIRST_SYNC_BIT + 8],
-                      sb[:, C.SECOND_SYNC_BIT : C.SECOND_SYNC_BIT + 8]], dim=-1)
+    return sync_softbits(candidate_frames_plain(c, W, pos, rows), dt, fast)
 
 
 def nbadsync_agreement(c: torch.Tensor, W: torch.Tensor, pos: torch.Tensor,
                        dt: DemodTables, nbad_a: torch.Tensor, nbad_b: torch.Tensor,
-                       near: float = 1e-3) -> tuple[float, int, bool]:
+                       near: float = 1e-3, fast: bool = False) -> tuple[float, int, bool]:
     """How two nbadsync grids (B, F, P, k) of the same candidates agree:
     (share of equal rows, count of unequal rows, whether every unequal row
-    has a plain sync-bit softbit with |sb| < near before scaling)."""
+    has a plain sync-bit softbit with |sb| < near before scaling; fast: by
+    the fast plain version)."""
     mism = nbad_a != nbad_b
     n = int(mism.sum())
     if not n:
         return 1.0, 0, True
-    sbs = sync_softbits_plain(c, W, pos, mism.nonzero(), dt)
-    return 1.0 - n / mism.numel(), n, bool((sbs.abs().amin(dim=-1) < near).all())
+    frames = candidate_frames_plain(c, W, pos, mism.nonzero())
+    return 1.0 - n / mism.numel(), n, sync_near_zero(frames, dt, near, fast)
 
 
 def demod_candidates(c: torch.Tensor, W: torch.Tensor, pos: torch.Tensor,
-                     dt: DemodTables) -> tuple[torch.Tensor, torch.Tensor]:
+                     dt: DemodTables, fast: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Full demod of windows c (B, N) at scan positions pos (B, F, P, k):
     kernel B4 on a CUDA tensor, the plain version on the CPU."""
     if kernels.on_cuda(c):
-        return demod_candidates_cuda(c, W, pos, dt)
-    return demod_candidates_plain(c, W, pos, dt)
+        return demod_candidates_cuda(c, W, pos, dt, fast)
+    return demod_candidates_plain(c, W, pos, dt, fast)

@@ -10,10 +10,13 @@ machine without nvcc or a GPU.
 
 Each C entry point launches one kernel on the stream it is given and
 returns cudaGetLastError(); raise_on_error turns a nonzero code into an
-exception. Launch counts live on the wrappers (scan.scan_cuda.launches,
-survivor.demod_survivors_cuda.launches, demod.demod_candidates_cuda.launches,
-ldpc.bp_decode_cuda.launches); count_launch adds to one, launch_counts /
-reset_launch_counts read and clear all four.
+exception. Every kernel has two instantiations in the library, float32 and
+the bf16 fast_math policy (ops/precision.py), chosen by the entry point's
+`fast` argument. Launch counts live on the wrappers (scan.scan_cuda,
+survivor.demod_survivors_cuda, demod.demod_candidates_cuda,
+ldpc.bp_decode_cuda), `launches` for float32 and `launches_fast` for fast;
+count_launch adds to one, launch_counts / reset_launch_counts read and clear
+all eight (the fast ones under "<kernel>_fast").
 
 Several threads may decode at once (the CLI's throughput mode runs its
 device calls on a worker pool): the first call builds the library under a
@@ -45,17 +48,17 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 SIGNATURES = {
     # c, B, E_dec, chi, pos_out, xb_out, n_win, F, depth, num_cand, dec,
-    # freq_tile, stream
-    "msk_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # freq_tile, fast, stream
+    "msk_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # c, W, chi, pos, f_idx, p_idx, sync_conj, pp12, masks, sync_pm, sb_out,
-    # nbad_out, n_win, S, F, rows_per_block, stream
-    "msk_survivor": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # nbad_out, n_win, S, F, rows_per_block, fast, stream
+    "msk_survivor": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # c, W, pos, sync_conj, pp12, masks, sync_pm, sb_out, nbad_out, n_win, F,
-    # depth, num_cand, stream
-    "msk_demod": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # depth, num_cand, fast, stream
+    "msk_demod": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # llr, valid, edge, bit_edges, row_start, check_mask, crc_mask, cw_out,
-    # found_out, iters_out, nerr_out, rows, max_iters, stream
-    "msk_bp": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # found_out, iters_out, nerr_out, rows, max_iters, fast, stream
+    "msk_bp": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lib = None  # the loaded library, once built
@@ -214,27 +217,32 @@ def check_tensors(op: str, **specs) -> None:
             raise ValueError(f"{op}: {name} must be contiguous")
 
 
-def count_launch(wrapper) -> None:
-    """One more launch of `wrapper`'s kernel (called right after the launch
-    succeeded)."""
+def count_launch(wrapper, fast: bool = False) -> None:
+    """One more launch of `wrapper`'s kernel, its fast instantiation if fast
+    (called right after the launch succeeded)."""
     with _count_lock:
-        wrapper.launches += 1
+        if fast:
+            wrapper.launches_fast += 1
+        else:
+            wrapper.launches += 1
+
+
+def _wrappers() -> dict:
+    from . import demod, ldpc, scan, survivor
+
+    return {"scan": scan.scan_cuda, "survivor": survivor.demod_survivors_cuda,
+            "demod": demod.demod_candidates_cuda, "bp": ldpc.bp_decode_cuda}
 
 
 def launch_counts() -> dict[str, int]:
-    from . import demod, ldpc, scan, survivor
-
-    return {"scan": scan.scan_cuda.launches,
-            "survivor": survivor.demod_survivors_cuda.launches,
-            "demod": demod.demod_candidates_cuda.launches,
-            "bp": ldpc.bp_decode_cuda.launches}
+    """Launches per kernel since the last reset: "scan", "survivor",
+    "demod", "bp" (float32), then the same names with "_fast"."""
+    ws = _wrappers()
+    return {**{k: w.launches for k, w in ws.items()},
+            **{f"{k}_fast": w.launches_fast for k, w in ws.items()}}
 
 
 def reset_launch_counts() -> None:
-    from . import demod, ldpc, scan, survivor
-
     with _count_lock:
-        scan.scan_cuda.launches = 0
-        survivor.demod_survivors_cuda.launches = 0
-        demod.demod_candidates_cuda.launches = 0
-        ldpc.bp_decode_cuda.launches = 0
+        for w in _wrappers().values():
+            w.launches = w.launches_fast = 0

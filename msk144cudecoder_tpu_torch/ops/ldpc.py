@@ -17,7 +17,9 @@ JAX package's one-hot matmuls. Per iteration, in the order of the reference:
 
 Iteration 0 checks zn = llr. The sums run in a fixed sequential order
 (slots 0..2 for zn, 0..10 for a check row), the order kernel B3 uses, so the
-two differ only by the device's tanh/log2/exp2 rounding.
+two differ only by the device's tanh/log2/exp2 rounding. With fast=True
+(DecoderConfig.fast_math) the messages round to bf16 where the JAX kernel's
+fast mode rounds them (ops/precision.py, B3).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 from .. import constants as C
 from ..protocol import ldpc_tables as T
 from . import kernels
+from .precision import round_bf16
 from .tables import TorchLdpcTables
 
 _LOG_FLOOR = 2.0 ** -80  # |t| floor before log2: a zero message floors at
@@ -68,13 +71,31 @@ def platanh(x: torch.Tensor) -> torch.Tensor:
     )
 
 
-def loo_log_domain(t: torch.Tensor, edge_valid: torch.Tensor) -> torch.Tensor:
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the last axis (a check row's 11 slots), in slot order."""
+    S = x[..., 0]
+    for j in range(1, x.shape[-1]):
+        S = S + x[..., j]
+    return S
+
+
+def split2(x: torch.Tensor) -> torch.Tensor:
+    """x as the sum of two bf16 parts h + l (about 16 mantissa bits)."""
+    h = round_bf16(x)
+    return h + round_bf16(x - h)
+
+
+def loo_log_domain(t: torch.Tensor, edge_valid: torch.Tensor, fast: bool = False) -> torch.Tensor:
     """Leave-one-out products of t (R, 38, 11) along each check row (padded
-    edges hold t = 1, so log2|t| = 0 and they drop out of the row sum)."""
+    edges hold t = 1, so log2|t| = 0 and they drop out of the row sum).
+    fast: the row sum is sum(h) + sum(l) of the log2 terms' two bf16 parts,
+    and reaches the edges as its own two bf16 parts."""
     lt = torch.log2(torch.clamp_min(torch.abs(t), _LOG_FLOOR))
-    S = lt[..., 0]
-    for j in range(1, T.MAX_ROW_DEGREE):
-        S = S + lt[..., j]
+    if fast:
+        h = round_bf16(lt)
+        S = split2(row_sum(h) + row_sum(round_bf16(lt - h)))
+    else:
+        S = row_sum(lt)
     mag = torch.exp2(S[..., None] - lt)
     neg = ((t < 0.0) & edge_valid).to(torch.int32)
     others = neg.sum(dim=-1, keepdim=True) - neg
@@ -82,8 +103,9 @@ def loo_log_domain(t: torch.Tensor, edge_valid: torch.Tensor) -> torch.Tensor:
 
 
 def bp_decode_plain(llr: torch.Tensor, valid: torch.Tensor, lt: TorchLdpcTables,
-                    max_iters: int = C.NUM_BP_ITERATIONS) -> BPResult:
-    """Plain torch BP over rows llr (R, 128) float32 with valid (R,) bool."""
+                    max_iters: int = C.NUM_BP_ITERATIONS, fast: bool = False) -> BPResult:
+    """Plain torch BP over rows llr (R, 128) float32 with valid (R,) bool;
+    fast: the messages in bf16 where the JAX kernel's fast mode has them."""
     R = llr.shape[0]
     dev = llr.device
     edge_valid = lt.nm >= 0  # (38, 11)
@@ -99,7 +121,11 @@ def bp_decode_plain(llr: torch.Tensor, valid: torch.Tensor, lt: TorchLdpcTables,
     nerr_s = torch.zeros((R,), dtype=torch.int32, device=dev)
     for it in range(max_iters):
         tflat = tov.reshape(R, -1)
-        zn = llr + tflat[:, mn[:, 0]] + tflat[:, mn[:, 1]] + tflat[:, mn[:, 2]]
+        if fast:
+            tb = round_bf16(tflat)
+            zn = llr + (tb[:, mn[:, 0]] + tb[:, mn[:, 1]] + tb[:, mn[:, 2]])
+        else:
+            zn = llr + tflat[:, mn[:, 0]] + tflat[:, mn[:, 1]] + tflat[:, mn[:, 2]]
         cw = zn > 0.0
         cwi = cw.to(torch.int32)
         par = (cwi[:, bit] * edge_valid).sum(dim=-1) % 2  # (R, 38)
@@ -113,18 +139,18 @@ def bp_decode_plain(llr: torch.Tensor, valid: torch.Tensor, lt: TorchLdpcTables,
         nerr_s = torch.where(newly, nerr, nerr_s)
         found = found | newly
 
-        toc = zn[:, bit] - tov  # (R, 38, 11)
+        toc = (round_bf16(zn) if fast else zn)[:, bit] - tov  # (R, 38, 11)
         t = torch.where(edge_valid, torch.tanh(-0.5 * toc), 1.0)
-        loo = loo_log_domain(t, edge_valid)
+        loo = loo_log_domain(t, edge_valid, fast)
         tov = torch.where(edge_valid, 2.0 * platanh(-loo), 0.0)
     return BPResult(found, cw_s, iter_s, nerr_s)
 
 
 def bp_decode_cuda(llr: torch.Tensor, valid: torch.Tensor, lt: TorchLdpcTables,
-                   max_iters: int = C.NUM_BP_ITERATIONS) -> BPResult:
-    """Kernel B3 (csrc/bp.cu): one block of 128 threads per codeword row.
-    llr (R, 128) float32, valid (R,) bool and the tables' packed forms,
-    contiguous on one CUDA device."""
+                   max_iters: int = C.NUM_BP_ITERATIONS, fast: bool = False) -> BPResult:
+    """Kernel B3 (csrc/bp.cu): one block of 128 threads per codeword row;
+    fast launches its bf16 instantiation. llr (R, 128) float32, valid (R,)
+    bool and the tables' packed forms, contiguous on one CUDA device."""
     R = llr.shape[0] if llr.dim() == 2 else -1
     n_edges = 3 * T.N_BITS
     kernels.check_tensors("bp_decode",
@@ -149,19 +175,20 @@ def bp_decode_cuda(llr: torch.Tensor, valid: torch.Tensor, lt: TorchLdpcTables,
                             lt.bit_edges.data_ptr(), lt.row_start.data_ptr(),
                             lt.check_mask.data_ptr(), lt.crc_mask.data_ptr(), cw.data_ptr(),
                             found.data_ptr(), iters.data_ptr(), nerr.data_ptr(),
-                            R, max_iters, kernels.stream_ptr(dev))
+                            R, max_iters, int(fast), kernels.stream_ptr(dev))
         kernels.raise_on_error("msk_bp", rc)
-        kernels.count_launch(bp_decode_cuda)
+        kernels.count_launch(bp_decode_cuda, fast)
     return BPResult(found, cw, iters, nerr)
 
 
 bp_decode_cuda.launches = 0
+bp_decode_cuda.launches_fast = 0
 
 
 def bp_decode(llr: torch.Tensor, valid: torch.Tensor, lt: TorchLdpcTables,
-              max_iters: int = C.NUM_BP_ITERATIONS) -> BPResult:
+              max_iters: int = C.NUM_BP_ITERATIONS, fast: bool = False) -> BPResult:
     """BP over rows llr (R, 128): kernel B3 on a CUDA tensor, the plain
     version on the CPU."""
     if kernels.on_cuda(llr):
-        return bp_decode_cuda(llr, valid, lt, max_iters)
-    return bp_decode_plain(llr, valid, lt, max_iters)
+        return bp_decode_cuda(llr, valid, lt, max_iters, fast)
+    return bp_decode_plain(llr, valid, lt, max_iters, fast)

@@ -10,7 +10,9 @@ branch: scan, full demod, selection over the whole grid, BP). The window
 axis B and the flat B*K BP batch are explicit batch dimensions.
 `DecodePipeline` holds every constant table as a buffer, so `.to(device)`
 moves all of it; on a CUDA device the kernels (csrc/) run, on the CPU their
-plain torch versions, with the same glue.
+plain torch versions, with the same glue. cfg.fast_math reaches the scan,
+the demod and BP: their bf16 instantiations on a card, their fast plain
+versions on the CPU (ops/precision.py); the glue is the same in both modes.
 
 Every ordering the decode depends on keeps the JAX package's tie order:
 stable descending sorts for the prefilter and the survivor keys (never
@@ -341,7 +343,7 @@ class DecodePipeline(nn.Module):
     def scan(self, c: torch.Tensor):
         cfg = self.cfg
         return scan.scan(c, self.B, self.E_dec, self.chi, cfg.scan_depth,
-                         cfg.candidates_per_pattern, cfg.scan_decimation)
+                         cfg.candidates_per_pattern, cfg.scan_decimation, cfg.fast_math)
 
     def prefilter(self, pos: torch.Tensor, xb: torch.Tensor):
         """The rows to demodulate, (xb, pos, f_idx, p_idx, flat_idx) each
@@ -366,13 +368,14 @@ class DecodePipeline(nn.Module):
         kernel B2 on the prefiltered rows, kernel B4 on the full grid.
         Masked channels' rows get nbadsync 17, above any threshold."""
         _, pos_f, f_idx, p_idx, _ = front
+        fast = self.cfg.fast_math
         if self.pre:
             sb, nbad = survivor.demod_survivors(c, self.W, self.chi, pos_f, f_idx, p_idx,
-                                                self.demod_tables)
+                                                self.demod_tables, fast)
         else:
             nb = pos_f.shape[0]
             sb, nbad = demod.demod_candidates(c, self.W, pos_f.reshape((nb,) + self.grid),
-                                              self.demod_tables)
+                                              self.demod_tables, fast)
             sb = sb.reshape(nb, self.nc, C.NUM_DATA_BITS)
             nbad = nbad.reshape(nb, self.nc)
         if self.chan_valid is not None:
@@ -388,7 +391,8 @@ class DecodePipeline(nn.Module):
     def bp(self, prep: PreparedWindows) -> BPResult:
         b, k = prep.valid.shape
         flat = ldpc.bp_decode(prep.llr.reshape(b * k, C.NUM_DATA_BITS),
-                              prep.valid.reshape(b * k), self.ldpc_tables)
+                              prep.valid.reshape(b * k), self.ldpc_tables,
+                              fast=self.cfg.fast_math)
         return BPResult(*(a.reshape((b, k) + a.shape[1:]) for a in flat))
 
     def finish(self, prep: PreparedWindows, bp: BPResult, c: torch.Tensor

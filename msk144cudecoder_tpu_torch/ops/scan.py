@@ -15,6 +15,10 @@ best lag of each of 21 slices of 256 lags (the head wraps), smallest lag
 winning ties, then the top-k slices per (f, p), smallest slice index winning
 ties. Positions are canonical mod N.
 
+With fast=True (DecoderConfig.fast_math) the correlation takes the JAX
+kernel's fast form (ops/precision.py, B1): bf16 lag planes and B operands,
+three float32-accumulated products in the Karatsuba combination.
+
 `scan` dispatches on the device of its input: a CUDA tensor goes to the
 hand-written kernel (csrc/scan.cu) or raises; a CPU tensor runs the plain
 version. There is no fallback between the two.
@@ -27,6 +31,7 @@ import torch
 from .. import constants as C
 
 from . import kernels
+from .precision import round_bf16
 
 _N = C.WINDOW_LEN
 _TAPS = C.SYNC_CORR_LEN
@@ -38,26 +43,40 @@ def _check_dec(dec: int) -> int:
     return _N // dec
 
 
+def karatsuba_bf16(x: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """conj(x) @ B in the fast form: x (..., 42) and B (42, F) complex64 as
+    bf16 planes [xr, xi, xr - xi] and [br, bi, br + bi], three float32
+    products m1, m2, m3; re = m1 + m2, im = m3 - m1 + m2."""
+    xr, xi = x.real, x.imag
+    br, bi = B.real, B.imag
+    m1 = torch.matmul(round_bf16(xr), round_bf16(br))
+    m2 = torch.matmul(round_bf16(xi), round_bf16(bi))
+    m3 = torch.matmul(round_bf16(xr - xi), round_bf16(br + bi))
+    return torch.complex(m1 + m2, m3 - m1 + m2)
+
+
 def sync_correlation(c: torch.Tensor, B: torch.Tensor, E_dec: torch.Tensor,
-                     chi: torch.Tensor, dec: int = 1) -> torch.Tensor:
+                     chi: torch.Tensor, dec: int = 1, fast: bool = False) -> torch.Tensor:
     """G (..., N/dec, F) complex64 on the coarse lag grid.
 
     c (..., N) complex64; B (42, F); E_dec (F, N/dec) (tables.e_decimated);
-    chi (F,)."""
+    chi (F,). fast: the correlation and its wrap correction in the bf16
+    Karatsuba form (karatsuba_bf16)."""
     n2 = _check_dec(dec)
     dev = c.device
+    corr = karatsuba_bf16 if fast else (lambda x, b: torch.matmul(x.conj(), b))
     lags = torch.arange(0, _N, dec, device=dev)
     taps = torch.arange(_TAPS, device=dev)
     ext = torch.cat([c, c[..., : _TAPS - 1]], dim=-1)
     cmat = ext[..., lags[:, None] + taps[None, :]]  # (..., n2, 42)
-    R = torch.matmul(cmat.conj(), B)  # (..., n2, F)
+    R = corr(cmat, B)  # (..., n2, F)
     # wrapped taps of the last lags pick up the (1 + chi) mixing factor
     nt = int((lags >= _N - (_TAPS - 1)).sum())
     lt = lags[n2 - nt:]
     wrapped = (lt[:, None] + taps[None, :]) >= _N
     bidx = torch.where(wrapped, lt[:, None] + taps[None, :] - _N, 0)
     bnd = torch.where(wrapped, c[..., bidx], torch.zeros((), dtype=c.dtype, device=dev))
-    D = torch.matmul(bnd.conj(), B)  # (..., nt, F)
+    D = corr(bnd, B)  # (..., nt, F)
     R = torch.cat([R[..., : n2 - nt, :], R[..., n2 - nt:, :] + chi * D], dim=-2)
     return E_dec.transpose(0, 1) * R
 
@@ -102,9 +121,9 @@ def select_candidates(xb: torch.Tensor, num_cand: int = C.NUM_CANDIDATES_PER_PAT
 def scan_plain(c: torch.Tensor, B: torch.Tensor, E_dec: torch.Tensor,
                chi: torch.Tensor, scan_depth: int,
                num_cand: int = C.NUM_CANDIDATES_PER_PATTERN,
-               dec: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+               dec: int = 1, fast: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain torch scan of windows c (..., N) -> (pos, xb) each (..., F, P, k)."""
-    G = sync_correlation(c, B, E_dec, chi, dec)
+    G = sync_correlation(c, B, E_dec, chi, dec, fast)
     return select_candidates(pattern_metrics(G, scan_depth, dec), num_cand, dec)
 
 
@@ -141,12 +160,12 @@ def scan_smem_bytes(freq_tile: int, dec: int, scan_depth: int) -> int:
 def scan_cuda(c: torch.Tensor, B: torch.Tensor, E_dec: torch.Tensor,
               chi: torch.Tensor, scan_depth: int,
               num_cand: int = C.NUM_CANDIDATES_PER_PATTERN,
-              dec: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+              dec: int = 1, fast: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel B1 (csrc/scan.cu) on windows c (Bw, N) -> (pos, xb) each
-    (Bw, F, P, k). Every input must be a contiguous complex64 CUDA tensor on
-    one device. The kernel stages each window with 16-byte loads, so a c
-    that does not start on a 16-byte boundary (a view into a larger tensor)
-    is copied first."""
+    (Bw, F, P, k); fast launches its bf16 instantiation. Every input must
+    be a contiguous complex64 CUDA tensor on one device. The kernel stages
+    each window with 16-byte loads, so a c that does not start on a 16-byte
+    boundary (a view into a larger tensor) is copied first."""
     n2 = _check_dec(dec)
     F = B.shape[-1]
     kernels.check_tensors("scan", c=(c, torch.complex64, (-1, _N)),
@@ -168,21 +187,22 @@ def scan_cuda(c: torch.Tensor, B: torch.Tensor, E_dec: torch.Tensor,
         with torch.cuda.device(c.device):
             rc = lib.msk_scan(c.data_ptr(), B.data_ptr(), E_dec.data_ptr(),
                               chi.data_ptr(), pos.data_ptr(), xb.data_ptr(),
-                              nw, F, scan_depth, num_cand, dec, ft,
+                              nw, F, scan_depth, num_cand, dec, ft, int(fast),
                               kernels.stream_ptr(c.device))
         kernels.raise_on_error("msk_scan", rc)
-        kernels.count_launch(scan_cuda)
+        kernels.count_launch(scan_cuda, fast)
     return pos, xb
 
 
 scan_cuda.launches = 0
+scan_cuda.launches_fast = 0
 
 
 def scan(c: torch.Tensor, B: torch.Tensor, E_dec: torch.Tensor,
          chi: torch.Tensor, scan_depth: int,
          num_cand: int = C.NUM_CANDIDATES_PER_PATTERN,
-         dec: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+         dec: int = 1, fast: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Scan windows c (Bw, N): kernel B1 on a CUDA tensor, plain on the CPU."""
     if kernels.on_cuda(c):
-        return scan_cuda(c, B, E_dec, chi, scan_depth, num_cand, dec)
-    return scan_plain(c, B, E_dec, chi, scan_depth, num_cand, dec)
+        return scan_cuda(c, B, E_dec, chi, scan_depth, num_cand, dec, fast)
+    return scan_plain(c, B, E_dec, chi, scan_depth, num_cand, dec, fast)

@@ -14,6 +14,11 @@ windows: mix each window down once per frequency (`mix_all`), sum the
 pattern's frames once per (frequency, pattern) (`pattern_average`), cut each
 candidate's frame from that sum (`gather_frames`), then `demod`. It is the
 plain version of kernel B4 (ops/demod.py, csrc/demod.cu).
+
+With fast=True (DecoderConfig.fast_math) `demod` rounds the frame samples
+and the taps (pp12, conj(cb42)) to bf16 once, the operands of the JAX
+kernels' bf16 matched-filter dot, and takes every sum and the derotation
+after that in float32 (ops/precision.py).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
+from .precision import round_bf16, round_complex
 from .tables import DemodTables
 
 
@@ -37,29 +43,51 @@ def mf_index() -> tuple[np.ndarray, np.ndarray]:
     return (858 + 12 * q + i) % C.FRAME_LEN, 12 * q + i
 
 
-def channel_softbits(frames: torch.Tensor, dt: DemodTables) -> torch.Tensor:
+def channel_softbits(frames: torch.Tensor, dt: DemodTables, fast: bool = False) -> torch.Tensor:
     """frames (..., 864) complex64 -> the 144 unscaled channel softbits
-    (..., 144) float32 of the carrier-derotated matched filter."""
+    (..., 144) float32 of the carrier-derotated matched filter; fast: the
+    frames and taps rounded to bf16 first."""
     dev = frames.device
     taps = C.SYNC_CORR_LEN
-    s = ((frames[..., :taps] * dt.sync_conj).sum(dim=-1)
+    sync_conj, pp12 = dt.sync_conj, dt.pp12
+    if fast:
+        frames, sync_conj, pp12 = round_complex(frames), round_complex(sync_conj), round_bf16(pp12)
+    s = ((frames[..., :taps] * sync_conj).sum(dim=-1)
          + (frames[..., C.SECOND_SYNC_SAMPLE : C.SECOND_SYNC_SAMPLE + taps]
-            * dt.sync_conj).sum(dim=-1))
+            * sync_conj).sum(dim=-1))
     phase0 = torch.atan2(s.imag, s.real)
     cfac = torch.complex(torch.cos(phase0), -torch.sin(phase0))
     d = frames * cfac[..., None]
 
     idx_q, idx_i = (torch.from_numpy(a).to(dev) for a in mf_index())
-    sb_q = (d.imag[..., idx_q] * dt.pp12).sum(dim=-1)  # (..., 72)
-    sb_i = (d.real[..., idx_i] * dt.pp12).sum(dim=-1)
+    sb_q = (d.imag[..., idx_q] * pp12).sum(dim=-1)  # (..., 72)
+    sb_i = (d.real[..., idx_i] * pp12).sum(dim=-1)
     return torch.stack([sb_q, sb_i], dim=-1).reshape(d.shape[:-1] + (C.NUM_CHANNEL_BITS,))
 
 
-def demod(frames: torch.Tensor, dt: DemodTables) -> tuple[torch.Tensor, torch.Tensor]:
+def sync_softbits(frames: torch.Tensor, dt: DemodTables, fast: bool = False) -> torch.Tensor:
+    """frames (..., 864) complex64 -> the 16 unscaled sync-bit softbits
+    (..., 16) float32, channel bits 0-7 and 56-63, whose signs nbadsync
+    counts."""
+    sb = channel_softbits(frames, dt, fast)
+    return torch.cat([sb[..., C.FIRST_SYNC_BIT : C.FIRST_SYNC_BIT + 8],
+                      sb[..., C.SECOND_SYNC_BIT : C.SECOND_SYNC_BIT + 8]], dim=-1)
+
+
+def sync_near_zero(frames: torch.Tensor, dt: DemodTables, near: float,
+                   fast: bool = False) -> bool:
+    """Whether every frame (..., 864) has a sync-bit softbit with |sb| < near
+    before scaling: the one case where a kernel and its plain version may
+    count nbadsync differently, since it counts those softbits' signs."""
+    return bool((sync_softbits(frames, dt, fast).abs().amin(dim=-1) < near).all())
+
+
+def demod(frames: torch.Tensor, dt: DemodTables,
+          fast: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """frames (..., 864) complex64 -> (softbits (..., 128) float32,
     nbadsync (...) int32)."""
     dev = frames.device
-    sb = channel_softbits(frames, dt)
+    sb = channel_softbits(frames, dt, fast)
     shape = sb.shape[:-1]
     sav = sb.mean(dim=-1, keepdim=True)
     s2av = (sb * sb).mean(dim=-1, keepdim=True)
@@ -104,9 +132,10 @@ def gather_frames(za: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
 
 
 def demod_candidates(c: torch.Tensor, W: torch.Tensor, pos: torch.Tensor,
-                     dt: DemodTables) -> tuple[torch.Tensor, torch.Tensor]:
+                     dt: DemodTables, fast: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Full demod of every scan candidate. c (B, N) complex64 windows, W
     (F, N) complex64, pos (B, F, P, k) int -> (softbits (B, F, P, k, 128)
-    float32, nbadsync (B, F, P, k) int32)."""
+    float32, nbadsync (B, F, P, k) int32). fast: the matched filter on bf16
+    operands; the mix and the pattern sums stay float32."""
     za = pattern_average(mix_all(c, W), pos.shape[2])
-    return demod(gather_frames(za, pos), dt)
+    return demod(gather_frames(za, pos), dt, fast)

@@ -14,6 +14,12 @@ with W[f, pos] = W[f, 128 * (pos // 128)] * W[f, pos % 128] as in the JAX
 package, so every factor is an exact table value and the only rounding is the
 float32 products themselves. The frame then goes through softbits.demod.
 
+With fast=True (DecoderConfig.fast_math) the plain version rounds where the
+JAX kernel's fast mode does (ops/precision.py, B2): the window, the table
+values and gamma round to bf16, the mix, the pattern sum and the carrier
+W[f, 128j + r] = W[f, 128j] * W[f, r] are in bf16, and the matched filter
+takes bf16 operands.
+
 `demod_survivors` dispatches on the device of the window: a CUDA tensor goes
 to the hand-written kernel (csrc/survivor.cu) or raises; a CPU tensor runs
 the plain version. Every row carries its own pattern, so one call covers all
@@ -26,7 +32,8 @@ import torch
 
 from .. import constants as C
 from . import kernels
-from .softbits import demod
+from .precision import cmul_bf16, round_bf16, round_complex
+from .softbits import demod, sync_near_zero
 from .tables import DemodTables
 
 _N = C.WINDOW_LEN
@@ -56,15 +63,69 @@ def survivor_params(pos: torch.Tensor, f_idx: torch.Tensor, p_idx: torch.Tensor,
     return torch.stack([g0, g1, g2], dim=-1)
 
 
-def demod_survivors_plain(c: torch.Tensor, W: torch.Tensor, chi: torch.Tensor,
-                          pos: torch.Tensor, f_idx: torch.Tensor,
-                          p_idx: torch.Tensor, dt: DemodTables
-                          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch survivor demod. c (B, N) complex64 windows; pos, f_idx,
-    p_idx (B, S) int. Returns (softbits (B, S, 128) float32, nbadsync (B, S)
-    int32)."""
+def _cmul(ar, ai, br, bi):
+    """(ar + i ai) * (br + i bi) in float32, each product and sum rounded on
+    its own (kernel B2's cmul_rn)."""
+    return ar * br - ai * bi, ar * bi + ai * br
+
+
+def survivor_params_fast(pos: torch.Tensor, f_idx: torch.Tensor, p_idx: torch.Tensor,
+                         W: torch.Tensor, chi: torch.Tensor,
+                         masks: torch.Tensor) -> torch.Tensor:
+    """survivor_params in fast mode: gamma[m, 0..1] (..., 6, 2) complex64 from
+    the table values W[f, 128q], W[f, r], W[f, 864m] and conj(1 + chi)
+    rounded to bf16 (the JAX kernel's one bf16 pass of the table fetch),
+    the products in float32, then gamma rounded to bf16 (k <= 1 for the
+    port's 864-sample frames)."""
+    pos = pos.long()
+    f = f_idx.long()
+    q0 = torch.div(pos, 128, rounding_mode="floor")
+    wq = round_complex(W[f, 128 * q0])
+    wr = round_complex(W[f, pos - 128 * q0])
+    m864 = torch.arange(_M, device=W.device) * C.FRAME_LEN
+    t864 = round_complex(W[f[..., None], m864])  # (..., 6)
+    phi = round_complex(torch.conj(1.0 + chi[f]))[..., None]
+    mask = masks[p_idx.long()].to(torch.float32)  # (..., 6)
+    wp_r, wp_i = _cmul(wq.real, wq.imag, wr.real, wr.imag)
+    a_r, a_i = _cmul(mask, torch.zeros_like(mask), wp_r[..., None], wp_i[..., None])
+    g0_r, g0_i = _cmul(a_r, a_i, t864.real, t864.imag)
+    g1_r, g1_i = _cmul(g0_r, g0_i, phi.real, phi.imag)
+    return torch.stack([round_complex(torch.complex(g0_r, g0_i)),
+                        round_complex(torch.complex(g1_r, g1_i))], dim=-1)
+
+
+def frame_fast(vals: torch.Tensor, g: torch.Tensor, W: torch.Tensor,
+               f_idx: torch.Tensor) -> torch.Tensor:
+    """The fast mode's frames (..., 864) complex64 from the bf16 window
+    samples vals and gammas g (..., 6, 864): the mix and the sum over the
+    six frames in ascending m, then the carrier W[f, 128j] * W[f, r] of
+    sample l = 128j + r, each operation in bf16."""
+    acc_r = torch.zeros(vals.shape[:-2] + vals.shape[-1:], device=vals.device)
+    acc_i = torch.zeros_like(acc_r)
+    for m in range(_M):
+        zr, zi = cmul_bf16(vals.real[..., m, :], vals.imag[..., m, :],
+                           g.real[..., m, :], g.imag[..., m, :])
+        acc_r, acc_i = round_bf16(acc_r + zr), round_bf16(acc_i + zi)
+    lane = torch.arange(C.FRAME_LEN, device=W.device)
+    f = f_idx.long()[..., None]
+    q = round_complex(W[f, 128 * torch.div(lane, 128, rounding_mode="floor")])
+    w = round_complex(W[f, lane % 128])
+    car_r, car_i = cmul_bf16(q.real, q.imag, w.real, w.imag)
+    return torch.complex(*cmul_bf16(acc_r, acc_i, car_r, car_i))
+
+
+def survivor_frames_plain(c: torch.Tensor, W: torch.Tensor, chi: torch.Tensor,
+                          pos: torch.Tensor, f_idx: torch.Tensor, p_idx: torch.Tensor,
+                          dt: DemodTables, fast: bool = False) -> torch.Tensor:
+    """The survivors' pattern-averaged, mixed-down frames (B, S, 864)
+    complex64 for windows c (B, N) and rows pos, f_idx, p_idx (B, S); fast:
+    rounded as the JAX kernel's fast mode."""
     dev = c.device
-    gam = survivor_params(pos, f_idx, p_idx, W, chi, dt.masks)  # (B, S, 6, 3)
+    if fast:
+        c = round_complex(c)
+        gam = survivor_params_fast(pos, f_idx, p_idx, W, chi, dt.masks)  # (B, S, 6, 2)
+    else:
+        gam = survivor_params(pos, f_idx, p_idx, W, chi, dt.masks)  # (B, S, 6, 3)
     m = torch.arange(_M, device=dev)[:, None] * C.FRAME_LEN
     lane = torch.arange(C.FRAME_LEN, device=dev)[None, :]
     idx = pos.long()[..., None, None] + m + lane  # (B, S, 6, 864)
@@ -73,9 +134,39 @@ def demod_survivors_plain(c: torch.Tensor, W: torch.Tensor, chi: torch.Tensor,
                         (idx - k * _N).reshape(idx.shape[0], idx.shape[1], -1))
     vals = vals.reshape(idx.shape)
     g = torch.gather(gam, -1, k.reshape(idx.shape[:3] + (-1,))).reshape(idx.shape)
+    if fast:
+        return frame_fast(vals, g, W, f_idx)
     frame = (vals * g).sum(dim=2)  # (B, S, 864)
-    frame = frame * W[f_idx.long(), : C.FRAME_LEN]
-    return demod(frame, dt)
+    return frame * W[f_idx.long(), : C.FRAME_LEN]
+
+
+def demod_survivors_plain(c: torch.Tensor, W: torch.Tensor, chi: torch.Tensor,
+                          pos: torch.Tensor, f_idx: torch.Tensor,
+                          p_idx: torch.Tensor, dt: DemodTables, fast: bool = False
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch survivor demod. c (B, N) complex64 windows; pos, f_idx,
+    p_idx (B, S) int. Returns (softbits (B, S, 128) float32, nbadsync (B, S)
+    int32). fast: rounded as the JAX kernel's fast mode."""
+    return demod(survivor_frames_plain(c, W, chi, pos, f_idx, p_idx, dt, fast), dt, fast)
+
+
+def nbadsync_agreement(c: torch.Tensor, W: torch.Tensor, chi: torch.Tensor,
+                       pos: torch.Tensor, f_idx: torch.Tensor, p_idx: torch.Tensor,
+                       dt: DemodTables, nbad_a: torch.Tensor, nbad_b: torch.Tensor,
+                       near: float, fast: bool = False) -> tuple[int, bool]:
+    """How two nbadsync grids (B, S) of the same survivor rows agree: (count
+    of unequal rows, whether every unequal row has a plain sync-bit softbit
+    with |sb| < near before scaling). nbadsync counts those softbits' signs,
+    so a kernel and its plain version can disagree only where one is near 0."""
+    mism = nbad_a != nbad_b
+    n = int(mism.sum())
+    if not n:
+        return 0, True
+    # the unequal rows, one window each: (n, N) windows of one row
+    b = mism.nonzero()[:, 0]
+    frames = survivor_frames_plain(c[b], W, chi, *(t[mism][:, None] for t in (pos, f_idx, p_idx)),
+                                   dt, fast)
+    return n, sync_near_zero(frames[:, 0], dt, near, fast)
 
 
 WARPS_PER_BLOCK = 8
@@ -94,13 +185,13 @@ def rows_per_block(S: int, n_win: int, sms: int) -> int:
 
 def demod_survivors_cuda(c: torch.Tensor, W: torch.Tensor, chi: torch.Tensor,
                          pos: torch.Tensor, f_idx: torch.Tensor,
-                         p_idx: torch.Tensor, dt: DemodTables
+                         p_idx: torch.Tensor, dt: DemodTables, fast: bool = False
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel B2 (csrc/survivor.cu): one warp per survivor row, blocks of
     rows_per_block rows of one window on up to 8 warps, B * S rows in one
-    launch. c (B, N) complex64; W (F, N) complex64; chi (F,)
-    complex64; pos/f_idx/p_idx (B, S) int32, all contiguous on one CUDA
-    device."""
+    launch; fast launches its bf16 instantiation. c (B, N) complex64; W
+    (F, N) complex64; chi (F,) complex64; pos/f_idx/p_idx (B, S) int32, all
+    contiguous on one CUDA device."""
     nw = c.shape[0] if c.dim() == 2 else -1
     F = W.shape[0]
     S = pos.shape[-1] if pos.dim() == 2 else -1
@@ -126,21 +217,22 @@ def demod_survivors_cuda(c: torch.Tensor, W: torch.Tensor, chi: torch.Tensor,
                                   dt.masks.data_ptr(), dt.sync_pm.data_ptr(),
                                   sb.data_ptr(), nbad.data_ptr(), nw, S, F,
                                   rows_per_block(S, nw, kernels.num_sms(c.device)),
-                                  kernels.stream_ptr(c.device))
+                                  int(fast), kernels.stream_ptr(c.device))
         kernels.raise_on_error("msk_survivor", rc)
-        kernels.count_launch(demod_survivors_cuda)
+        kernels.count_launch(demod_survivors_cuda, fast)
     return sb, nbad
 
 
 demod_survivors_cuda.launches = 0
+demod_survivors_cuda.launches_fast = 0
 
 
 def demod_survivors(c: torch.Tensor, W: torch.Tensor, chi: torch.Tensor,
                     pos: torch.Tensor, f_idx: torch.Tensor,
-                    p_idx: torch.Tensor, dt: DemodTables
+                    p_idx: torch.Tensor, dt: DemodTables, fast: bool = False
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Survivor demod of windows c (B, N): kernel B2 on a CUDA tensor, the
     plain version on the CPU."""
     if kernels.on_cuda(c):
-        return demod_survivors_cuda(c, W, chi, pos, f_idx, p_idx, dt)
-    return demod_survivors_plain(c, W, chi, pos, f_idx, p_idx, dt)
+        return demod_survivors_cuda(c, W, chi, pos, f_idx, p_idx, dt, fast)
+    return demod_survivors_plain(c, W, chi, pos, f_idx, p_idx, dt, fast)

@@ -11,7 +11,9 @@ oldest result to the host and post-processes it.
 throughput mode): on a card each call runs on its thread's own CUDA stream,
 from a pinned host copy of the batch to pinned host copies of the results,
 and returns after that stream's synchronize. Post-processing keeps stream
-state (SNR, dedup) and runs on one thread, in stream order.
+state (SNR, dedup) and runs on one thread, in stream order. The
+configuration's precision (DecoderConfig.fast_math) reaches the kernels, or
+their plain versions, through the pipeline.
 """
 
 from __future__ import annotations

@@ -11,9 +11,11 @@ error, the remaining steps still run, and any failed step fails the battery
 (exit 2):
 
   gpu_tests    tests/test_torch_gpu.py in a subprocess (pytest --noconftest):
-               0 failed, 0 skipped, at least 31 passed
+               0 failed, 0 skipped, at least GPU_TESTS_MIN passed
   kernels      B1-B4 against their plain versions at chip_smoke.py phase 2's
-               shapes, by the agreement rules of PERF.md section 6
+               shapes, by the agreement rules of PERF.md section 6, in
+               float32 and in the bf16 fast_math mode (its fast
+               instantiations against the fast plain versions)
   busyband     the four-ping pileup: prefilter 0 and K = 4848 decodes each
                ping at (num_avg, nbadsync) = (1, 0); at K = 256 the exact
                overflow warning and the same per-message result; the
@@ -30,6 +32,16 @@ error, the remaining steps still run, and any failed step fails the battery
                one trial apart at -8 dB
   soak         the streaming soak through the CLI: the asserts of
                tests/test_soak.py, lines equal to --device=cpu's
+  precision    the bf16 mode (DecoderConfig(fast_math=True)) against float32,
+               card against card, by the bar the JAX package's fast_math
+               met (msk144cudecoder_tpu/config.py:82-87): the sweep's
+               protocol with the same decoded trials down to -6 dB and at
+               most one apart at -8 dB; the busy band with the prefilter
+               off and K = the whole grid with per-message (num_avg,
+               nbadsync) equal, and at K = 256 with the prefilter on the
+               same decodes; in fast mode, the demo's three messages with a
+               summary equal to the CPU's fast plain path, and the -4 dB
+               deep-scan decode; a fast pass launches only the fast kernels
 
 It writes tests/data/hwtests_gpu.json (the card's name and power limit from
 nvidia-smi, the torch, CUDA and nvcc versions, every step, the provenance
@@ -81,7 +93,8 @@ DEMO_MESSAGES = {"CQ K1ABC FN42", "K1ABC W9XYZ EN37", "W9XYZ K1ABC RR73"}
 DEEP = DecoderConfig(search_width=500.0, search_step=1.0, scan_depth=6, nbadsync_threshold=3)
 BUSY = DecoderConfig(search_width=200.0, search_step=2.0, scan_depth=6, nbadsync_threshold=3,
                      max_survivors=256)
-GPU_TESTS_MIN = 31
+GPU_TESTS_MIN = 45
+NEAR_FAST = 2.0 ** -8  # one bf16 ulp at 1: a fast sync softbit this near 0 may flip
 MESH_SHAPES = ((1, 4), (2, 2))
 # IQ input: two messages at offsets around the 0 Hz centre, inside the
 # default 200 Hz width
@@ -192,13 +205,15 @@ def kernel_windows(cfg, n: int, rng, dev, noise: bool = True):
 
 
 def check_scan(pipe, c) -> tuple[dict, tuple]:
-    """Kernel B1 against scan_plain: xb within 1e-4; positions on the coarse
-    grid, equal in >= 99 % of the slots of every pattern but the all-frames
-    pattern 5, whose slice maxima tie by construction (near ties only
-    there). Returns (agreement statistics, the kernel's arguments)."""
+    """Kernel B1 against scan_plain, in the pipeline's precision: xb within
+    1e-4; positions on the coarse grid, equal in >= 99 % of the slots of
+    every pattern but the all-frames pattern 5, whose slice maxima tie by
+    construction (near ties only there). Returns (agreement statistics, the
+    kernel's arguments)."""
     cfg = pipe.cfg
     depth, dec = cfg.scan_depth, cfg.scan_decimation
-    args = (c, pipe.B, pipe.E_dec, pipe.chi, depth, cfg.candidates_per_pattern, dec)
+    args = (c, pipe.B, pipe.E_dec, pipe.chi, depth, cfg.candidates_per_pattern, dec,
+            cfg.fast_math)
     pos_k, xb_k = scan.scan_cuda(*args)
     pos_p, xb_p = scan.scan_plain(*args)
     pk, pp = pos_k.cpu().numpy(), pos_p.cpu().numpy()
@@ -218,8 +233,10 @@ def check_scan(pipe, c) -> tuple[dict, tuple]:
 def check_survivor(pipe, c, plant: bool) -> tuple[dict, tuple, tuple]:
     """Kernel B2 against demod_survivors_plain on the prefilter's rows (with
     wrap lags and gap patterns planted in the first 8 rows of each window
-    when plant): nbadsync identical, softbits within 5e-3 relative
-    (|d| / (|ref| + 1e-3)). Returns (statistics, arguments, outputs)."""
+    when plant), in the pipeline's precision: softbits within 5e-3 relative
+    (|d| / (|ref| + 1e-3)); nbadsync identical in float32, and in fast mode
+    unequal only where a plain sync softbit lies within one bf16 ulp
+    (NEAR_FAST) of 0. Returns (statistics, arguments, outputs)."""
     dev = c.device
     front = pipe.prefilter(*pipe.scan(c))
     pos_f, f_idx, p_idx = (t.clone() for t in front[1:4])
@@ -229,24 +246,26 @@ def check_survivor(pipe, c, plant: bool) -> tuple[dict, tuple, tuple]:
         p_idx[:, :8] = torch.tensor([6, 7, 6, 7, 5, 3, 0, 7], dtype=torch.int32, device=dev)
         f_idx[:, :8] = torch.tensor([0, 100, 50, 7, 99, 1, 60, 33], dtype=torch.int32,
                                     device=dev)
-    args = (c, pipe.W, pipe.chi, pos_f, f_idx, p_idx, pipe.demod_tables)
+    fast = pipe.cfg.fast_math
+    args = (c, pipe.W, pipe.chi, pos_f, f_idx, p_idx, pipe.demod_tables, fast)
     sb_k, nb_k = survivor.demod_survivors_cuda(*args)
     sb_p, nb_p = survivor.demod_survivors_plain(*args)
-    stats = dict(rows=int(nb_k.numel()), nbadsync_unequal=int((nb_k != nb_p).sum()),
+    n_mism, near = survivor.nbadsync_agreement(*args[:7], nb_k, nb_p, NEAR_FAST, fast)
+    stats = dict(rows=int(nb_k.numel()), nbadsync_unequal=n_mism, unequal_near_zero=near,
                  max_rel=((sb_k - sb_p).abs() / (sb_p.abs() + 1e-3)).max().item(),
                  max_abs_err=(sb_k - sb_p).abs().max().item())
-    assert stats["nbadsync_unequal"] == 0, stats
+    assert (n_mism == 0) if not fast else near, stats
     assert stats["max_rel"] < 5e-3, stats
     assert torch.isfinite(sb_k).all()
     return stats, args, (sb_k, nb_k)
 
 
-def bp_inputs(rng, dev) -> list:
+def bp_inputs(rng, dev, fast: bool = False) -> list:
     """(tag, llr, valid, tables) of kernel B3's cases: the main path's own
-    rows, the selected survivors of 64 demo windows (16,384 rows); then 4096
-    rows, three quarters planted codewords with noise, a quarter noise, every
-    fourth row marked invalid."""
-    pipe, c = kernel_windows(DecoderConfig(), 64, rng, dev, noise=False)
+    rows (in the given precision), the selected survivors of 64 demo windows
+    (16,384 rows); then 4096 rows, three quarters planted codewords with
+    noise, a quarter noise, every fourth row marked invalid."""
+    pipe, c = kernel_windows(DecoderConfig(fast_math=fast), 64, rng, dev, noise=False)
     front = pipe.prefilter(*pipe.scan(c))
     prep = pipe.select(*pipe.demod(c, front), front)
     rows = []
@@ -262,16 +281,18 @@ def bp_inputs(rng, dev) -> list:
              torch.from_numpy(np.arange(4096) % 4 != 3).to(dev), lt)]
 
 
-def check_bp(tag: str, llr, valid, lt) -> tuple[dict, tuple]:
-    """Kernel B3 against bp_decode_plain: every output identical, and rows
-    found (over 1000 of the planted rows). Returns (statistics, outputs)."""
-    r_k = ldpc.bp_decode_cuda(llr, valid, lt)
-    r_p = ldpc.bp_decode_plain(llr, valid, lt)
+def check_bp(tag: str, llr, valid, lt, fast: bool = False) -> tuple[dict, tuple]:
+    """Kernel B3 against bp_decode_plain, in float32 or fast: every output
+    identical in float32, found and codeword identical on every row in
+    fast mode; rows found (over 1000 of the planted rows). Returns
+    (statistics, outputs)."""
+    r_k = ldpc.bp_decode_cuda(llr, valid, lt, fast=fast)
+    r_p = ldpc.bp_decode_plain(llr, valid, lt, fast=fast)
     unequal = [f for f in r_k._fields if not torch.equal(getattr(r_k, f), getattr(r_p, f))]
     stats = dict(rows=int(llr.shape[0]), valid=int(valid.sum()), found=int(r_k.found.sum()),
                  unequal_outputs=unequal,
                  max_abs_err=float((r_k.codeword.int() - r_p.codeword.int()).abs().max()))
-    assert not unequal, (tag, stats)
+    assert not set(unequal) & ({"found", "codeword"} if fast else set(r_k._fields)), (tag, stats)
     assert stats["found"] > (1000 if tag == "planted rows" else 0), (tag, stats)
     return stats, r_k
 
@@ -279,18 +300,20 @@ def check_bp(tag: str, llr, valid, lt) -> tuple[dict, tuple]:
 def check_demod(pipe, c) -> tuple[dict, tuple, list, tuple]:
     """Kernel B4 against demod_candidates_plain on every scan candidate, lags
     planted at the window's wrap points, the plain version 4 windows at a
-    time: softbits within 5e-3 relative; nbadsync equal on >= 99.99 % of
-    rows, every unequal row with a plain sync softbit within 1e-3 of 0.
+    time, in the pipeline's precision: softbits within 5e-3 relative;
+    nbadsync equal on >= 99.99 % of rows, every unequal row with a plain
+    sync softbit within 1e-3 of 0 (in fast mode NEAR_FAST, one bf16 ulp).
     Returns (statistics, arguments, the plain version's chunked arguments,
     outputs)."""
     nw = c.shape[0]
+    fast = pipe.cfg.fast_math
     pos = pipe.scan(c)[0].contiguous()
     pos.view(nw, -1)[:, : len(DEMOD_WRAPS)] = torch.tensor(DEMOD_WRAPS, dtype=torch.int32,
                                                            device=c.device)
-    args = (c, pipe.W, pos, pipe.demod_tables)
+    args = (c, pipe.W, pos, pipe.demod_tables, fast)
     sb_k, nb_k = demod.demod_candidates_cuda(*args)
     assert torch.isfinite(sb_k).all()
-    chunks = [(c[lo:lo + 4], pipe.W, pos[lo:lo + 4].contiguous(), pipe.demod_tables)
+    chunks = [(c[lo:lo + 4], pipe.W, pos[lo:lo + 4].contiguous(), pipe.demod_tables, fast)
               for lo in range(0, nw, 4)]
     rel, err, n_mism, near = 0.0, 0.0, 0, True
     for lo, a in zip(range(0, nw, 4), chunks):
@@ -298,7 +321,8 @@ def check_demod(pipe, c) -> tuple[dict, tuple, list, tuple]:
         d = (sb_k[lo:lo + 4] - sb_p).abs()
         rel = max(rel, (d / (sb_p.abs() + 1e-3)).max().item())
         err = max(err, d.max().item())
-        _, n, ok = demod.nbadsync_agreement(*a, nb_k[lo:lo + 4], nb_p)
+        _, n, ok = demod.nbadsync_agreement(*a[:4], nb_k[lo:lo + 4], nb_p,
+                                            near=NEAR_FAST if fast else 1e-3, fast=fast)
         n_mism, near = n_mism + n, near and ok
         del sb_p, nb_p, d
     stats = dict(rows=int(nb_k.numel()), max_rel=rel, max_abs_err=err,
@@ -309,33 +333,56 @@ def check_demod(pipe, c) -> tuple[dict, tuple, list, tuple]:
     return stats, args, chunks, (sb_k, nb_k)
 
 
+def fast_cases(cases) -> tuple:
+    """The bf16 (fast_math) counterparts of kernel cases (config first)."""
+    return tuple((cfg.replace(fast_math=True), *rest) for cfg, *rest in cases)
+
+
+# the fast instantiations at the main path's shapes: B1 and B2 on its 64
+# windows (B2 also with wrap lags and gap patterns planted), B4 on the deep
+# scan's 64 windows (B3 on the fast main path's rows: bp_inputs(fast=True))
+FAST_SCAN_CASES = fast_cases(SCAN_CASES[:2])
+FAST_SURVIVOR_CASES = fast_cases((SURVIVOR_CASES[0], SURVIVOR_CASES[2]))
+FAST_DEMOD_CASES = fast_cases(DEMOD_CASES[:1])
+
+
+def mode(cfg) -> str:
+    return " bf16" if cfg.fast_math else ""
+
+
 def scan_name(cfg, nw: int) -> str:
-    return f"scan F={cfg.num_freqs} depth={cfg.scan_depth} dec={cfg.scan_decimation} B={nw}"
+    return (f"scan F={cfg.num_freqs} depth={cfg.scan_depth} dec={cfg.scan_decimation} B={nw}"
+            + mode(cfg))
 
 
 def survivor_name(cfg, nw: int, rows: int, plant: bool) -> str:
     return (f"survivor F={cfg.num_freqs} depth={cfg.scan_depth} B={nw} S={rows}"
-            + (" (wrap lags, gap patterns planted)" if plant else ""))
+            + (" (wrap lags, gap patterns planted)" if plant else "") + mode(cfg))
+
+
+def bp_name(tag: str, rows: int, fast: bool) -> str:
+    return f"bp R={rows} ({tag})" + (" bf16" if fast else "")
 
 
 def demod_name(cfg, nw: int, rows: int) -> str:
     return (f"demod F={cfg.num_freqs} depth={cfg.scan_depth} k={cfg.candidates_per_pattern} "
-            f"B={nw} ({rows} rows)")
+            f"B={nw} ({rows} rows)" + mode(cfg))
 
 
 def step_kernels(rec: dict) -> None:
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(2026)
-    for cfg, nw in SCAN_CASES:
+    for cfg, nw in SCAN_CASES + FAST_SCAN_CASES:
         pipe, c = kernel_windows(cfg, nw, rng, dev)
         rec[scan_name(cfg, nw)], _ = check_scan(pipe, c)
-    for cfg, nw, plant in SURVIVOR_CASES:
+    for cfg, nw, plant in SURVIVOR_CASES + FAST_SURVIVOR_CASES:
         pipe, c = kernel_windows(cfg, nw, rng, dev)
         stats, args, _ = check_survivor(pipe, c, plant)
         rec[survivor_name(cfg, nw, args[3].shape[1], plant)] = stats
-    for tag, llr, valid, lt in bp_inputs(rng, dev):
-        rec[f"bp R={llr.shape[0]} ({tag})"], _ = check_bp(tag, llr, valid, lt)
-    for cfg, nw in DEMOD_CASES:
+    for fast in (False, True):
+        for tag, llr, valid, lt in bp_inputs(rng, dev, fast):
+            rec[bp_name(tag, llr.shape[0], fast)], _ = check_bp(tag, llr, valid, lt, fast)
+    for cfg, nw in DEMOD_CASES + FAST_DEMOD_CASES:
         pipe, c = kernel_windows(cfg.replace(survivor_prefilter=0), nw, rng, dev)
         stats = check_demod(pipe, c)[0]
         rec[demod_name(pipe.cfg, nw, stats["rows"])] = stats
@@ -579,9 +626,82 @@ def step_soak(rec: dict) -> None:
     assert rec["equal_to_cpu"], (out, out_cpu)
 
 
+def path_kernels(cfg) -> set:
+    """The kernels a pass of cfg launches, by their launch_counts keys."""
+    names = {"scan", "survivor" if cfg.survivor_prefilter != 0 else "demod", "bp"}
+    return {f"{k}_fast" for k in names} if cfg.fast_math else names
+
+
+def fast_demo_pass(rec: dict, cfg, dev) -> dict:
+    """A StreamDecoder pass of cfg in fast mode over the demo on the card,
+    its launch counts set to 0 just before and read just after: it decodes
+    the demo's three messages, launches only its path's fast kernels, and
+    its summary equals the CPU's fast plain path. Returns its summary."""
+    windows = demo_windows()
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stderr(io.StringIO()):
+        best = decode_best(StreamDecoder(cfg, dev), windows)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    with contextlib.redirect_stderr(io.StringIO()):
+        best_cpu = decode_best(StreamDecoder(cfg, "cpu"), windows)
+    rec.update(launches=counts, card={m: list(v) for m, v in sorted(best.items())},
+               cpu={m: list(v) for m, v in sorted(best_cpu.items())})
+    assert set(best) == DEMO_MESSAGES, rec
+    assert {k for k, n in counts.items() if n} == path_kernels(cfg), rec
+    assert {m: v[:2] for m, v in best.items()} == {m: v[:2] for m, v in best_cpu.items()}, rec
+    return best
+
+
+def step_precision(rec: dict) -> None:
+    """The bf16 mode against float32, card against card (see the module
+    docstring)."""
+    dev = torch.device(DEVICE)
+    # the sweep's protocol in both precisions
+    cfg = DecoderConfig(**sensitivity_sweep.PROTOCOL)
+    snrs, trials = sensitivity_sweep.SNRS, sensitivity_sweep.TRIALS
+    results = {}
+    for name, c in (("fp32", cfg), ("bf16", cfg.replace(fast_math=True))):
+        t0 = time.perf_counter()
+        results[name] = sensitivity_sweep.sweep(c, snrs, trials, dev)
+        rec[f"sweep_{name}_seconds"] = time.perf_counter() - t0
+    log(sensitivity_sweep.table(cfg, trials, results))
+    diff = {s: sorted(set(results["fp32"][s]) ^ set(results["bf16"][s])) for s in snrs}
+    for name in results:
+        rec[f"sweep_{name}"] = {f"{s:g}": results[name][s] for s in snrs}
+    rec["sweep_differ"] = {f"{s:g}": diff[s] for s in snrs}
+    # the busy band: the prefilter off and K = every candidate, then the
+    # prefilter path at K = 256
+    windows = stimulus.stream_windows(stimulus.busy_band_audio())
+    busy = {}
+    for tag, c in (("full_kall", BUSY.replace(survivor_prefilter=0,
+                                              max_survivors=BUSY.num_candidates)),
+                   ("prefilter_k256", BUSY)):
+        for name, cc in (("fp32", c), ("bf16", c.replace(fast_math=True))):
+            with contextlib.redirect_stderr(io.StringIO()):
+                busy[tag, name] = decode_best(StreamDecoder(cc, dev), windows)
+            rec[f"busy_{tag}_{name}"] = {m: list(v) for m, v in sorted(busy[tag, name].items())}
+    # the demo in fast mode on both paths, and the deep scan's -4 dB decode
+    for tag, c in (("demo_main", DecoderConfig()), ("demo_full", DecoderConfig(survivor_prefilter=0))):
+        fast_demo_pass(rec.setdefault(tag, {}), c.replace(fast_math=True), dev)
+    weak = stimulus.synthesize_audio_int16([("CQ K1ABC FN42", 1500.0)], 6, snr_db=-4.0,
+                                           rng=np.random.default_rng(1000))
+    with contextlib.redirect_stderr(io.StringIO()):
+        deep = StreamDecoder(DEEP.replace(fast_math=True), dev).decode_block(weak[: C.WINDOW_LEN])
+    rec["deep_weak"] = [(r.message, r.num_avg, r.nbadsync, r.f0) for r in deep]
+    log(f"[precision] {rec}")
+    for s in snrs:
+        assert len(diff[s]) <= allowed_differences(s), (s, diff[s])
+    per_msg = {k: {m: v[:2] for m, v in b.items()} for k, b in busy.items()}
+    assert set(per_msg["full_kall", "fp32"]) == {p[0] for p in stimulus.BUSY_BAND_PINGS}
+    assert per_msg["full_kall", "bf16"] == per_msg["full_kall", "fp32"], per_msg
+    assert set(busy["prefilter_k256", "bf16"]) == set(busy["prefilter_k256", "fp32"]), busy
+    assert {r.message for r in deep} == {"CQ K1ABC FN42"}, rec["deep_weak"]
+
+
 STEPS = (("gpu_tests", step_gpu_tests), ("kernels", step_kernels), ("busyband", step_busyband),
          ("cli", step_cli), ("mesh", step_mesh), ("inputs", step_inputs),
-         ("sensitivity", step_sensitivity), ("soak", step_soak))
+         ("sensitivity", step_sensitivity), ("soak", step_soak), ("precision", step_precision))
 
 
 def main() -> int:

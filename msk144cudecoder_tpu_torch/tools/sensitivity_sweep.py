@@ -13,11 +13,16 @@ The default protocol is the deep scan the JAX package pinned its floor at
 K = 512 (the auto prefilter: 1024 rows), every 4th lag, 20 trials, SNRs 2
 to -8 dB. Per-trial equality between two devices is expected at every SNR
 but the noise floor, where the kernels' and the plain path's softbits,
-which agree within 5e-3 relative, can flip a marginal trial.
+which agree within 5e-3 relative, can flip a marginal trial. --fast-math
+runs the sweep in the bf16 precision mode (DecoderConfig.fast_math, on the
+card and, with --compare-cpu, on the CPU's fast plain path), the
+counterpart of the JAX sweep's default; without it the sweep computes in
+fp32, the JAX sweep's --exact.
 
 Usage:
     python -m msk144cudecoder_tpu_torch.tools.sensitivity_sweep [--device cuda]
-        [--compare-cpu] [--trials 20] [--snrs 2,0,-2,-4,-6,-8] [--search-width 500]
+        [--compare-cpu] [--fast-math] [--trials 20] [--snrs 2,0,-2,-4,-6,-8]
+        [--search-width 500]
 """
 
 from __future__ import annotations
@@ -82,7 +87,7 @@ def table(cfg: DecoderConfig, trials: int, results: Dict[str, Dict[float, List[i
              f"step={cfg.search_step:g} depth={cfg.scan_depth} F={cfg.num_freqs} "
              f"K={cfg.max_survivors} pre={pre} dec={cfg.scan_decimation} "
              f"nbadsync<={cfg.nbadsync_threshold} trials={trials} (seeds {SEED0}-"
-             f"{SEED0 + trials - 1})",
+             f"{SEED0 + trials - 1}) precision={'bf16' if cfg.fast_math else 'fp32'}",
              f"{'SNR dB':>7} | {'device':<8} | {'decoded':>7} | {'share':>5} | trials"]
     devices = list(results)
     for snr in next(iter(results.values())):
@@ -107,9 +112,12 @@ def main(argv=None) -> int:
     p.add_argument("--snrs", default=",".join(f"{s:g}" for s in SNRS))
     p.add_argument("--search-width", type=float, default=PROTOCOL["search_width"],
                    help="Hz; narrower than the protocol's 500 only for a quick run on the CPU")
+    p.add_argument("--fast-math", action="store_true",
+                   help="bf16 inputs, f32 accumulation (DecoderConfig.fast_math); default fp32")
     args = p.parse_args(argv)
 
-    cfg = DecoderConfig(**{**PROTOCOL, "search_width": args.search_width})
+    cfg = DecoderConfig(**{**PROTOCOL, "search_width": args.search_width,
+                           "fast_math": args.fast_math})
     snrs = [float(s) for s in args.snrs.split(",")]
     try:
         dev = kernels.resolve_device(args.device)

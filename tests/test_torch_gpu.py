@@ -5,7 +5,10 @@ the frequency-sharded MeshDecoder on one card against its CPU run. Marked
 plain versions against the JAX package instead). On a machine with a card
 and nvcc, and without jax (tests/conftest.py imports it):
     python -m pytest --noconftest tests/test_torch_gpu.py -q
-The tolerances are those of chip_smoke.py."""
+The tolerances are those of chip_smoke.py. The bf16 instantiations
+(DecoderConfig.fast_math) are held against the fast plain versions by the
+battery's checks (tools/run_hwtests.py check_scan, check_survivor,
+check_bp, check_demod), whose rules PERF.md section 6 states."""
 
 import pathlib
 from concurrent.futures import ThreadPoolExecutor
@@ -21,6 +24,7 @@ from msk144cudecoder_tpu_torch.ops import demod, kernels, ldpc, pipeline, scan, 
 from msk144cudecoder_tpu_torch.parallel import MeshDecoder, make_mesh
 from msk144cudecoder_tpu_torch.protocol import crc, ldpc_tables, msg77
 from msk144cudecoder_tpu_torch.runtime import StreamDecoder
+from msk144cudecoder_tpu_torch.tools import run_hwtests as hw
 
 pytestmark = pytest.mark.gpu
 DEMO = pathlib.Path(__file__).resolve().parents[1] / "demo" / "capture.raw"
@@ -280,3 +284,81 @@ def test_mesh_decoder_on_one_card_equals_cpu(cuda, n_time, n_freq, prefilter):
     assert (np.abs(got.num_survivors - want.num_survivors) <= 0.01 * want.num_survivors).all()
     demod_kernel = "survivor" if prefilter is None else "demod"
     assert counts["scan"] == counts[demod_kernel] == counts["bp"] == n
+
+
+@pytest.mark.parametrize("kw,n_win", [
+    (dict(), 64),  # the main path's batch
+    (DEEP, 64),  # the deep scan's batch
+    (dict(scan_depth=8, candidates_per_pattern=5), 16),  # the gap patterns
+])
+def test_scan_fast_kernel_matches_fast_plain(cuda, kw, n_win):
+    """Kernel B1's bf16 instantiation against scan_plain(fast): xb within
+    1e-4, positions by the float32 rule (both sum the same exact products,
+    in another order)."""
+    pipe, c = demo_batch(cuda, DecoderConfig(**kw, fast_math=True), n_win)
+    hw.check_scan(pipe, c)
+
+
+@pytest.mark.parametrize("n_win,plant", [(64, False), (16, True), (4, True)])
+def test_survivor_fast_kernel_matches_fast_plain(cuda, n_win, plant):
+    """Kernel B2's bf16 instantiation against demod_survivors_plain(fast) on
+    the prefilter's rows, with wrap lags and gap patterns planted: softbits
+    within 5e-3 relative, nbadsync unequal only where a plain sync softbit
+    lies within one bf16 ulp of 0."""
+    pipe, c = demo_batch(cuda, DecoderConfig(fast_math=True), n_win)
+    hw.check_survivor(pipe, c, plant)
+
+
+@pytest.mark.parametrize("case", [0, 1])
+def test_bp_fast_kernel_matches_fast_plain(cuda, case):
+    """Kernel B3's bf16 instantiation against bp_decode_plain(fast) on the
+    fast main path's rows of 64 windows and on planted rows: found and
+    codeword identical on every row."""
+    tag, llr, valid, lt = hw.bp_inputs(np.random.default_rng(case), cuda, fast=True)[case]
+    hw.check_bp(tag, llr, valid, lt, fast=True)
+
+
+@pytest.mark.parametrize("kw,n_win", [
+    (dict(), 8),
+    (dict(scan_depth=8, candidates_per_pattern=5), 2),
+    (DEEP, 2),
+])
+def test_demod_fast_kernel_matches_fast_plain(cuda, kw, n_win):
+    """Kernel B4's bf16 instantiation against demod_candidates_plain(fast)
+    on every candidate, lags planted at the wrap points: softbits within
+    5e-3 relative, nbadsync equal on >= 99.99 % of rows and unequal only
+    where a plain sync softbit lies within one bf16 ulp of 0."""
+    cfg = DecoderConfig(**kw, fast_math=True, survivor_prefilter=0)
+    pipe, c = demo_batch(cuda, cfg, n_win)
+    hw.check_demod(pipe, c)
+
+
+def test_fast_kernels_reject_out_of_range_rows(setup):
+    """The bf16 instantiations of B2 and B4 give 128 zeros and nbadsync 17
+    for a row whose pos, f or p lies outside the tables."""
+    _, pipe, c = setup
+    _, pos_f, f_idx, p_idx = (t.clone() for t in pipe.prefilter(*pipe.scan(c))[:4])
+    pos_f[:, 0], f_idx[:, 1], p_idx[:, 2] = C.WINDOW_LEN, pipe.W.shape[0], 8
+    sb, nb = survivor.demod_survivors_cuda(c, pipe.W, pipe.chi, pos_f, f_idx, p_idx,
+                                           pipe.demod_tables, True)
+    assert (nb[:, :3] == 17).all() and (sb[:, :3] == 0).all() and (nb[:, 3:] < 17).all()
+    pos = pipe.scan(c)[0].contiguous()
+    pos.view(pos.shape[0], -1)[:, :2] = torch.tensor([-1, C.WINDOW_LEN], dtype=torch.int32,
+                                                     device=c.device)
+    sb, nb = demod.demod_candidates_cuda(c, pipe.W, pos, pipe.demod_tables, True)
+    flat_sb, flat_nb = sb.view(pos.shape[0], -1, 128), nb.view(pos.shape[0], -1)
+    assert (flat_nb[:, :2] == 17).all() and (flat_sb[:, :2] == 0).all()
+
+
+@pytest.mark.parametrize("prefilter", [None, 0])
+def test_fast_pass_launches_only_fast_kernels(cuda, prefilter):
+    """A decode in fast mode launches only the fast instantiations of its
+    path's kernels, one in float32 only the float32 ones."""
+    demo = stimulus.stream_windows(np.fromfile(DEMO, dtype=np.int16))[:8]
+    for fast in (False, True):
+        cfg = DecoderConfig(survivor_prefilter=prefilter, fast_math=fast)
+        dec = StreamDecoder(cfg, cuda)
+        kernels.reset_launch_counts()
+        dec.decode_to_host(demo)
+        launched = {k for k, n in kernels.launch_counts().items() if n}
+        assert launched == hw.path_kernels(cfg), (fast, launched)

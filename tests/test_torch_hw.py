@@ -24,7 +24,8 @@ from msk144cudecoder_tpu_torch.runtime import evidence
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "msk144cudecoder_tpu_torch"
 EVIDENCE = REPO / "tests" / "data" / "hwtests_gpu.json"
-STEPS = ("gpu_tests", "kernels", "busyband", "cli", "mesh", "inputs", "sensitivity", "soak")
+STEPS = ("gpu_tests", "kernels", "busyband", "cli", "mesh", "inputs", "sensitivity", "soak",
+         "precision")
 REPIN = ("re-run `python -m msk144cudecoder_tpu_torch.tools.run_hwtests` on the H100 and "
          "commit tests/data/hwtests_gpu.json")
 
@@ -79,12 +80,16 @@ def test_pinned_evidence_is_green():
         assert rec[key], key
     for step in STEPS:
         assert rec["steps"][step]["ok"], (step, rec["steps"][step])
+    from msk144cudecoder_tpu_torch.tools.run_hwtests import GPU_TESTS_MIN
+
     gpu = rec["steps"]["gpu_tests"]
-    assert gpu["failed"] == 0 and gpu["skipped"] == 0 and gpu["passed"] >= 31, gpu
+    assert gpu["failed"] == 0 and gpu["skipped"] == 0 and gpu["passed"] >= GPU_TESTS_MIN, gpu
     sens = rec["steps"]["sensitivity"]
     assert sens["protocol"]["search_width"] == 500.0 and sens["protocol"]["trials"] == 20
-    for snr, diff in sens["differ"].items():
-        assert len(diff) <= (0 if float(snr) >= -6.0 else 1), (snr, diff)
+    # the card against the CPU, and the bf16 mode against float32 on the card
+    for differ in (sens["differ"], rec["steps"]["precision"]["sweep_differ"]):
+        for snr, diff in differ.items():
+            assert len(diff) <= (0 if float(snr) >= -6.0 else 1), (snr, diff)
 
 
 def test_pinned_evidence_matches_the_tree():

@@ -114,6 +114,9 @@ def test_config_matches_jax_config():
     ours = {f.name: f.default for f in dataclasses.fields(DecoderConfig)}
     ref = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
     ref.pop("use_pallas")
+    # the one documented difference (config.py): float32 by default here,
+    # the bf16 policy by default in the JAX package
+    assert ours.pop("fast_math") is False and ref.pop("fast_math") is True
     assert ours == ref
     for kw in (dict(), dict(read_mode=2), dict(search_width=500.0, search_step=1.0,
                                                scan_depth=9)):
