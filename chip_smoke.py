@@ -10,7 +10,9 @@ caught, and any failure exits non-zero.
   0. environment: a CUDA device is required (exit 1 without one); prints the
      card's name and power limit, the torch, CUDA and nvcc versions; TF32 off
   1. build: compiles csrc/*.cu into the git-ignored _build/ (keyed on a hash
-     of the sources)
+     of the sources); logs ptxas's registers and spills, and checks in the
+     SASS (cuobjdump) that every instance of B1's bf16 kernel runs its
+     correlation on the tensor cores (HMMA instructions)
   2. each kernel against its plain torch version on the card, at main-path
      shapes, with its time by CUDA events (queued: the calls back to back
      behind a device-side sleep; and not queued), the least time
@@ -26,9 +28,10 @@ caught, and any failure exits non-zero.
      version 4 windows at a time; F=101 depth 4 on 8 windows, F=501 depth 6
      on 2, depth 8 with 5 candidates per pattern on 2; lags planted at the
      window's wrap points); then the bf16 instantiations (fast_math) against
-     the fast plain versions at the main path's shapes: B1 and B2 on its 64
-     windows (default, and deep or planted), B3 on the fast main path's rows
-     and on planted rows, B4 on the deep scan's 64 windows
+     the fast plain versions: B1 (on the tensor cores) at every shape of the
+     float32 B1's, with its tile, registers, spills and HMMA count; B2 at
+     every shape of the float32 B2's, B3 on the fast main path's rows and
+     on planted rows, B4 on the deep scan's 64 windows
   3. main path: the CLI on demo/capture.raw on the card decodes the three
      planted messages, with lines identical (but for date=) to --device=cpu;
      an in-process StreamDecoder pass over the demo launches the scan,
@@ -244,6 +247,7 @@ def main() -> int:
     from msk144cudecoder_tpu_torch.ops import demod, kernels, ldpc, pipeline, scan, survivor
     from msk144cudecoder_tpu_torch.runtime import StreamDecoder
     from msk144cudecoder_tpu_torch.tools import run_hwtests as hw
+    from msk144cudecoder_tpu_torch.tools import scan_compare
 
     card = hw.card_line()
     dev = torch.device(DEVICE)
@@ -265,6 +269,11 @@ def main() -> int:
     for ln in ptxas.splitlines():
         if "Used" in ln or "Compiling entry" in ln or "spill" in ln:
             log("[ptxas] " + ln.strip())
+    # B1's bf16 instances compute the correlation on the tensor cores
+    fast_scan = scan_compare.build_report(lib_path)["scan_fast_kernel"]
+    assert fast_scan and all(v[3] > 0 for v in fast_scan.values()), fast_scan
+    log("[build] B1 bf16 scan_fast_kernel<dec, tile>: HMMA instructions in the SASS per instance "
+        + ", ".join(f"<{k}> {v[3]}" for k, v in fast_scan.items()))
 
     rng = np.random.default_rng(2026)
     demo = np.frombuffer((ROOT / "demo" / "capture.raw").read_bytes(), dtype=np.int16)
@@ -288,10 +297,16 @@ def main() -> int:
         plain_ms = cuda_time(lambda: scan.scan_plain(*args), reps=3)
         bound_ms, bound_by = scan_bound(nw, cfg.num_freqs, depth, k, dec, cfg.fast_math)
         name = hw.scan_name(cfg, nw)
+        build = ""
+        if cfg.fast_math:
+            ft = scan.scan_tile(nw, cfg.num_freqs, dec, kernels.num_sms(dev))
+            regs, spill_st, spill_ld, n_hmma = fast_scan[f"{dec},{ft}"]
+            build = (f", tile {ft}: {regs} registers, spills {spill_st} B stored / {spill_ld} B "
+                     f"loaded, {n_hmma} HMMA")
         log(f"[B1] {name}: pos agree {stats['pos_agree_min']:.4f} (least over the patterns "
-            f"but 5), near ties {stats['near_ties']}, max |dxb| {stats['max_abs_err']:.3g}, "
+            f"but 5 and 6), near ties {stats['near_ties']}, max |dxb| {stats['max_abs_err']:.3g}, "
             f"kernel {ms:.4f} ms ({ms_unq:.4f} not queued), plain {plain_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f}  ({card})")
+            f"{bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f}{build}  ({card})")
         if cfg.replace(fast_math=False) == DecoderConfig() and nw == 64:
             kernel_rows.append(dict(name=row_name("scan", cfg), route="cuda",
                                     source="msk144cudecoder_tpu_torch/csrc/scan.cu",

@@ -17,7 +17,8 @@ ties. Positions are canonical mod N.
 
 With fast=True (DecoderConfig.fast_math) the correlation takes the JAX
 kernel's fast form (ops/precision.py, B1): bf16 lag planes and B operands,
-three float32-accumulated products in the Karatsuba combination.
+three float32-accumulated products in the Karatsuba combination, which
+kernel B1's bf16 instantiation computes on the tensor cores.
 
 `scan` dispatches on the device of its input: a CUDA tensor goes to the
 hand-written kernel (csrc/scan.cu) or raises; a CPU tensor runs the plain
@@ -142,6 +143,7 @@ def scan_tile(n_win: int, F: int, dec: int, num_sms: int) -> int:
 
 
 SMEM_NO_OPT_IN = 48 * 1024  # bytes a block may use without an opt-in
+SMEM_OPT_IN_MAX = 232_448  # bytes a block may use after one, on the H100
 
 
 def scan_smem_bytes(freq_tile: int, dec: int, scan_depth: int) -> int:
@@ -157,15 +159,33 @@ def scan_smem_bytes(freq_tile: int, dec: int, scan_depth: int) -> int:
     return 8 * (_N + _TAPS * freq_tile + freq_tile * scan_depth * C.NUM_SCAN_SLICES)
 
 
+FAST_TAPS = 48  # the product's K: the 42 taps and 6 zero taps
+FAST_PLANES_BYTES = 3 * 2 * (_N + FAST_TAPS)  # bf16 planes cr, ci, cd, extended
+
+
+def scan_fast_smem_bytes(freq_tile: int, dec: int) -> int:
+    """The dynamic shared memory of kernel B1's bf16 instantiation
+    (fast_smem_bytes in csrc/scan.cu), on the float32 kernel's tiles
+    (scan_tile): G of the tile's frequencies beside the window's bf16
+    planes, whose place the slice maxima take later (at any depth). Above
+    SMEM_NO_OPT_IN, so the kernel launches with an opt-in, and within
+    SMEM_OPT_IN_MAX."""
+    n2 = _check_dec(dec)
+    if freq_tile not in FREQ_TILES or freq_tile * n2 > _N:
+        raise ValueError(f"a tile of {freq_tile} frequencies does not fit at dec {dec}")
+    return 8 * freq_tile * n2 + FAST_PLANES_BYTES
+
+
 def scan_cuda(c: torch.Tensor, B: torch.Tensor, E_dec: torch.Tensor,
               chi: torch.Tensor, scan_depth: int,
               num_cand: int = C.NUM_CANDIDATES_PER_PATTERN,
               dec: int = 1, fast: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel B1 (csrc/scan.cu) on windows c (Bw, N) -> (pos, xb) each
-    (Bw, F, P, k); fast launches its bf16 instantiation. Every input must
-    be a contiguous complex64 CUDA tensor on one device. The kernel stages
-    each window with 16-byte loads, so a c that does not start on a 16-byte
-    boundary (a view into a larger tensor) is copied first."""
+    (Bw, F, P, k); fast launches its bf16 instantiation, the correlation on
+    the tensor cores. Every input must be a contiguous complex64 CUDA tensor
+    on one device. The kernel stages each window with 16-byte loads, so a c
+    that does not start on a 16-byte boundary (a view into a larger tensor)
+    is copied first."""
     n2 = _check_dec(dec)
     F = B.shape[-1]
     kernels.check_tensors("scan", c=(c, torch.complex64, (-1, _N)),

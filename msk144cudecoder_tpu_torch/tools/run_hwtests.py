@@ -93,7 +93,7 @@ DEMO_MESSAGES = {"CQ K1ABC FN42", "K1ABC W9XYZ EN37", "W9XYZ K1ABC RR73"}
 DEEP = DecoderConfig(search_width=500.0, search_step=1.0, scan_depth=6, nbadsync_threshold=3)
 BUSY = DecoderConfig(search_width=200.0, search_step=2.0, scan_depth=6, nbadsync_threshold=3,
                      max_survivors=256)
-GPU_TESTS_MIN = 45
+GPU_TESTS_MIN = 50
 NEAR_FAST = 2.0 ** -8  # one bf16 ulp at 1: a fast sync softbit this near 0 may flip
 MESH_SHAPES = ((1, 4), (2, 2))
 # IQ input: two messages at offsets around the 0 Hz centre, inside the
@@ -204,12 +204,18 @@ def kernel_windows(cfg, n: int, rng, dev, noise: bool = True):
     return pipe, pipe.preprocess(torch.from_numpy(np.stack(raws)).to(dev))
 
 
+TIED_PATTERNS = (5, 6)  # their metrics repeat every 864 and 2592 samples: slice maxima tie
+
+
 def check_scan(pipe, c) -> tuple[dict, tuple]:
     """Kernel B1 against scan_plain, in the pipeline's precision: xb within
     1e-4; positions on the coarse grid, equal in >= 99 % of the slots of
-    every pattern but the all-frames pattern 5, whose slice maxima tie by
-    construction (near ties only there). Returns (agreement statistics, the
-    kernel's arguments)."""
+    every pattern but the all-frames pattern 5 and the gap pattern 6 (depth
+    > 6), whose slice maxima tie by construction; every unequal slot a near
+    tie (the two xb within 1e-4 relative). The bf16 kernel's tensor cores add
+    each k-step's products in an order of their own, so it too agrees with
+    the plain version to float32 rounding, not bit for bit. Returns
+    (agreement statistics, the kernel's arguments)."""
     cfg = pipe.cfg
     depth, dec = cfg.scan_depth, cfg.scan_decimation
     args = (c, pipe.B, pipe.E_dec, pipe.chi, depth, cfg.candidates_per_pattern, dec,
@@ -220,7 +226,7 @@ def check_scan(pipe, c) -> tuple[dict, tuple]:
     xk, xp = xb_k.cpu().numpy(), xb_p.cpu().numpy()
     mism = pk != pp
     near = np.abs(xk - xp) <= 1e-4 * np.abs(xp)
-    untied = [p for p in range(depth) if p != 5]
+    untied = [p for p in range(depth) if p not in TIED_PATTERNS]
     agree = [1.0 - float(mism[:, :, p].mean()) for p in untied]
     stats = dict(pos_agree_min=min(agree), near_ties=int(mism.sum()),
                  max_abs_err=float(np.abs(xk - xp).max()))
@@ -338,11 +344,12 @@ def fast_cases(cases) -> tuple:
     return tuple((cfg.replace(fast_math=True), *rest) for cfg, *rest in cases)
 
 
-# the fast instantiations at the main path's shapes: B1 and B2 on its 64
-# windows (B2 also with wrap lags and gap patterns planted), B4 on the deep
-# scan's 64 windows (B3 on the fast main path's rows: bp_inputs(fast=True))
-FAST_SCAN_CASES = fast_cases(SCAN_CASES[:2])
-FAST_SURVIVOR_CASES = fast_cases((SURVIVOR_CASES[0], SURVIVOR_CASES[2]))
+# the fast instantiations: B1 and B2 at every shape of their float32 cases
+# (B2 on the main path's 64 windows, default and deep, and with wrap lags and
+# gap patterns planted), B4 on the deep scan's 64 windows (B3 on the fast
+# main path's rows: bp_inputs(fast=True))
+FAST_SCAN_CASES = fast_cases(SCAN_CASES)
+FAST_SURVIVOR_CASES = fast_cases(SURVIVOR_CASES)
 FAST_DEMOD_CASES = fast_cases(DEMOD_CASES[:1])
 
 

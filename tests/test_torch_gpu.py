@@ -290,11 +290,17 @@ def test_mesh_decoder_on_one_card_equals_cpu(cuda, n_time, n_freq, prefilter):
     (dict(), 64),  # the main path's batch
     (DEEP, 64),  # the deep scan's batch
     (dict(scan_depth=8, candidates_per_pattern=5), 16),  # the gap patterns
+    (dict(), 1),  # one window: one frequency per block
+    (dict(scan_decimation=2), 8),
+    (dict(scan_decimation=1), 8),  # two 16-bit loads per operand register
+    (dict(search_width=12.0), 64),  # F = 7: a ragged tile, mma columns unused
+    (dict(search_width=0.0), 64),  # F = 1
 ])
 def test_scan_fast_kernel_matches_fast_plain(cuda, kw, n_win):
-    """Kernel B1's bf16 instantiation against scan_plain(fast): xb within
-    1e-4, positions by the float32 rule (both sum the same exact products,
-    in another order)."""
+    """Kernel B1's bf16 instantiation (the correlation on the tensor cores)
+    against scan_plain(fast) by check_scan's rule: xb within 1e-4,
+    positions equal but for near ties and the patterns that tie by
+    construction (both sum the same exact products, in another order)."""
     pipe, c = demo_batch(cuda, DecoderConfig(**kw, fast_math=True), n_win)
     hw.check_scan(pipe, c)
 

@@ -11,6 +11,8 @@ pattern 5. That pattern sums all six frames cyclically, so its metric
 repeats every 864 lags and its slice maxima tie by construction: which of
 the tied slices ranks first is decided by rounding alone."""
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -148,6 +150,61 @@ def test_scan_tiles_cover_every_cell_once(F):
             assert sorted(cells) == [(w, f) for w in range(n_win) for f in range(F)]
             assert n_win * tiles >= min(132, n_win * F)
     assert scan.scan_tile(1, 101, 4, 132) == 1 and scan.scan_tile(64, 101, 4, 132) == 4
+
+
+@pytest.mark.parametrize("dec", [1, 2, 4])
+def test_scan_fast_tile_shared_memory_fits(dec):
+    """The bf16 kernel runs on the float32 kernel's tiles (scan_tile): every
+    tile the wrapper may choose at this dec keeps the block within the
+    232,448 bytes a block may use after the opt-in (the widest needs it),
+    three blocks within the SM's 233,472 (1 KB reserved each), and the slice
+    maxima of every depth in the planes' place; a tile wider than dec is
+    refused. The plan's
+    coverage is test_scan_tiles_cover_every_cell_once's."""
+    for n_win in (1, 2, 8, 64, 1000):
+        for F in (1, 7, 101, 501):
+            ft = scan.scan_tile(n_win, F, dec, 132)
+            nbytes = scan.scan_fast_smem_bytes(ft, dec)
+            assert nbytes <= scan.SMEM_OPT_IN_MAX == 232_448
+            assert 3 * (nbytes + 1024) <= 233_472
+            for depth in range(1, 9):
+                assert 8 * ft * depth * 21 <= scan.FAST_PLANES_BYTES
+    assert scan.scan_fast_smem_bytes(dec, dec) == 8 * 5184 + 31_392 > scan.SMEM_NO_OPT_IN
+    for ft in scan.FREQ_TILES:
+        if ft > dec:
+            with pytest.raises(ValueError):
+                scan.scan_fast_smem_bytes(ft, dec)
+
+
+def test_fast_tile_plan_matches_the_kernel_source():
+    """The wrapper's shared-memory plan uses the constants csrc/scan.cu
+    compiles with: K = 48 taps, and the mma's 8 columns cover the widest
+    tile."""
+    src = (kernels.CSRC_DIR / "scan.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kTapsPadded") == scan.FAST_TAPS
+    assert const("kMmaCols") >= max(scan.FREQ_TILES)
+
+
+def test_scan_compare_cuts_each_phase(tmp_path, monkeypatch):
+    """tools/scan_compare.py's phase split finds the source line that ends
+    each phase of this tree's bf16 kernel: every copy differs from scan.cu
+    by one sink and return, put before that line; without a card the tool
+    exits 1."""
+    from msk144cudecoder_tpu_torch.tools import scan_compare
+
+    src = (kernels.CSRC_DIR / "scan.cu").read_text()
+    trees = scan_compare.split_trees(kernels.PKG_DIR, tmp_path, "this")
+    assert list(trees) == list(scan_compare.PHASES)
+    for (anchor, sink), root in zip(scan_compare.CUTS["tensor cores"], trees.values()):
+        cut = (root / "csrc" / "scan.cu").read_text()
+        assert cut == src.replace(anchor, sink + anchor) != src
+        assert sink.rstrip().endswith("return;")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert scan_compare.main(["--base", str(tmp_path)]) == 1
 
 
 def test_public_op_dispatch_has_no_fallback(windows):

@@ -14,6 +14,7 @@ import sys
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from msk144cudecoder_tpu import golden as G
 from msk144cudecoder_tpu.config import DecoderConfig as JaxConfig
@@ -21,6 +22,8 @@ from msk144cudecoder_tpu.ops import pipeline as jpipeline
 from msk144cudecoder_tpu.protocol import msg77 as jmsg77
 from msk144cudecoder_tpu_torch import stimulus
 from msk144cudecoder_tpu_torch.config import DecoderConfig
+from msk144cudecoder_tpu_torch.ops import pipeline
+from msk144cudecoder_tpu_torch.runtime.decoder import to_host
 from msk144cudecoder_tpu_torch.tools import sensitivity_sweep as sweep_mod
 
 from test_soak import _scene
@@ -44,22 +47,24 @@ def test_soak_scene_matches_jax_soak():
     assert len(ours) == 5184 + (stimulus.SOAK_WINDOWS - 1) * 2592
 
 
-def jax_sweep(width: float) -> dict:
-    """The JAX CPU path's decoded trials at the sweep's protocol but width."""
+def jax_sweep(width: float, snrs=SNRS, trials=tuple(range(TRIALS)),
+              prefilter: int = 2 * sweep_mod.PROTOCOL["max_survivors"]) -> dict:
+    """The JAX CPU path's decoded trials (seed 1000 + t for trial t) at the
+    sweep's protocol but width and prefilter (0: the full demod)."""
     cfg = JaxConfig(**{**sweep_mod.PROTOCOL, "search_width": width},
-                    survivor_prefilter=2 * sweep_mod.PROTOCOL["max_survivors"])
+                    survivor_prefilter=prefilter)
     out = {}
-    for snr in SNRS:
+    for snr in snrs:
         raw = np.stack([G.synthesize_audio_int16([(sweep_mod.MESSAGE, sweep_mod.F0)], 6,
                                                  snr_db=snr, rng=np.random.default_rng(1000 + t))
-                        for t in range(TRIALS)])
+                        for t in trials])
         res = jpipeline.decode_raw(jnp.asarray(raw), cfg)
         hits = []
-        for t in range(TRIALS):
+        for b, t in enumerate(trials):
             hashes = jmsg77.CallsignHashTable()
-            for k in np.nonzero(np.asarray(res.found[t]))[0]:
+            for k in np.nonzero(np.asarray(res.found[b]))[0]:
                 ok, text = jmsg77.unpack77(
-                    jpipeline.unpack_message_bits(np.asarray(res.message_bits[t][k])), hashes)
+                    jpipeline.unpack_message_bits(np.asarray(res.message_bits[b][k])), hashes)
                 if ok and text == sweep_mod.MESSAGE:
                     hits.append(t)
                     break
@@ -78,6 +83,26 @@ def test_sweep_matches_jax_cpu(width):
     diff = sorted(set(ours[-8.0]) ^ set(ref[-8.0]))
     assert len(diff) <= 1, (diff, ours, ref)
     assert ours[-6.0], ours  # the floor is below -6 dB: the comparison is not vacuous
+
+
+FLOOR_TRIALS = (2, 5, 17)  # seeds 1002, 1005, 1017
+
+
+@pytest.mark.parametrize("prefilter,decoded", [(1024, [2]), (0, [2, 5, 17])])
+def test_floor_trials_match_jax_cpu(prefilter, decoded):
+    """At the sweep's protocol (width 500 Hz) and -8 dB, the port's CPU path
+    and the JAX CPU path decode the same of trials 2, 5 and 17 with the
+    1024-row prefilter and with the full demod (prefilter 0); trials 5 and
+    17 decode only with the full demod, in both packages. So the port's
+    5/20 at -8 dB is the JAX package's own on its prefilter path; the JAX
+    package's 7/20 is its full demod's."""
+    cfg = DecoderConfig(**sweep_mod.PROTOCOL, survivor_prefilter=prefilter)
+    pipe = pipeline.DecodePipeline(cfg)
+    raw = np.stack([sweep_mod.trial_audio(-8.0, t) for t in FLOOR_TRIALS])
+    res = to_host(pipe(torch.from_numpy(raw)))
+    ours = [t for b, t in enumerate(FLOOR_TRIALS) if sweep_mod.decodes_message(res, b)]
+    ref = jax_sweep(sweep_mod.PROTOCOL["search_width"], (-8.0,), FLOOR_TRIALS, prefilter)[-8.0]
+    assert ours == ref == decoded, (ours, ref)
 
 
 def test_sweep_cli_prints_its_table():
