@@ -10,9 +10,10 @@ caught, and any failure exits non-zero.
   0. environment: a CUDA device is required (exit 1 without one); prints the
      card's name and power limit, the torch, CUDA and nvcc versions; TF32 off
   1. build: compiles csrc/*.cu into the git-ignored _build/ (keyed on a hash
-     of the sources); logs ptxas's registers and spills, and checks in the
-     SASS (cuobjdump) that every instance of B1's bf16 kernel runs its
-     correlation on the tensor cores (HMMA instructions)
+     of the sources); logs ptxas's registers and spills (B2's and B3's per
+     instantiation), and checks in the SASS (cuobjdump) that every instance
+     of B1's bf16 kernel runs its correlation, and B2's bf16 instantiation
+     its matched filter, on the tensor cores (HMMA instructions)
   2. each kernel against its plain torch version on the card, at main-path
      shapes, with its time by CUDA events (queued: the calls back to back
      behind a device-side sleep; and not queued), the least time
@@ -269,11 +270,19 @@ def main() -> int:
     for ln in ptxas.splitlines():
         if "Used" in ln or "Compiling entry" in ln or "spill" in ln:
             log("[ptxas] " + ln.strip())
-    # B1's bf16 instances compute the correlation on the tensor cores
-    fast_scan = scan_compare.build_report(lib_path)["scan_fast_kernel"]
+    # B1's bf16 instances compute the correlation on the tensor cores, B2's
+    # bf16 instantiation its matched filter
+    report = scan_compare.build_report(lib_path, ("scan_fast_kernel", "survivor_kernel",
+                                                  "bp_kernel"))
+    fast_scan = report["scan_fast_kernel"]
     assert fast_scan and all(v[3] > 0 for v in fast_scan.values()), fast_scan
     log("[build] B1 bf16 scan_fast_kernel<dec, tile>: HMMA instructions in the SASS per instance "
         + ", ".join(f"<{k}> {v[3]}" for k, v in fast_scan.items()))
+    assert report["survivor_kernel"]["1"][3] > 0, report["survivor_kernel"]
+    for name in ("survivor_kernel", "bp_kernel"):
+        log(f"[build] {name}<false> / <true>: "
+            + "; ".join(f"{regs} registers, spills {st} B stored / {ld} B loaded, {hmma} HMMA"
+                        for regs, st, ld, hmma in (report[name][k] for k in ("0", "1"))))
 
     rng = np.random.default_rng(2026)
     demo = np.frombuffer((ROOT / "demo" / "capture.raw").read_bytes(), dtype=np.int16)

@@ -54,6 +54,16 @@
 // high parts plus the sum of the low parts, and it reaches the edges as its
 // own two bf16 parts. Parity, CRC, tanhf, exp2f and platanh are the FP32
 // instantiation's. Every output equals bp_decode_plain(fast) as in FP32.
+// An edge keeps its two parts in one word, so that one shared load feeds
+// both sums of a check and the row's state is the FP32 instantiation's
+// size. The kFast instantiation is latency-bound like the FP32 one, and
+// its roundings lengthen the per-bit sum and the check sums (PERF.md
+// section 6). Measured no faster than the two arrays: a check's two sums
+// on two threads (joined where the edges read them, or by a shuffle), tov
+// kept rounded beside it, the roundings by integer operations, and 12 or
+// 16 blocks per SM (spills).
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -73,14 +83,13 @@ constexpr int kMaxHardErrors = 18;
 constexpr int kThreads = kBits;  // a thread per bit
 constexpr int kEdgesPerThread = kEdges / kThreads;
 
-// The row's messages. kFast keeps each log2 term as its two bf16 parts:
-// the high one in lt, the low one in lt_lo.
+// The row's messages. kFast keeps each log2 term as its two bf16 parts in
+// one word (pack_bf16's layout: the high part in the low half).
 template <bool kFast>
 struct RowState {
   float tov[kEdges];
   float t[kEdges];
-  float lt[kEdges];
-  float lt_lo[kFast ? kEdges : 1];
+  std::conditional_t<kFast, unsigned, float> lt[kEdges];
   float zn[kBits];
   float row_sum[kChecks];
   int row_neg[kChecks];
@@ -118,6 +127,16 @@ __device__ __forceinline__ float split2(float x) {
   const float h = round_bf16(x);
   return h + round_bf16(x - h);
 }
+
+// x's two bf16 parts (h, round(x - h)) in one word (the high part in the
+// low half), and each back as a float
+__device__ __forceinline__ unsigned pack_split2(float x) {
+  return pack_bf16(make_float2(x, x - round_bf16(x)));
+}
+
+__device__ __forceinline__ float split_high(unsigned w) { return __uint_as_float(w << 16); }
+
+__device__ __forceinline__ float split_low(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
 
 template <bool kFast>
 __global__ void __launch_bounds__(kThreads)
@@ -202,25 +221,25 @@ bp_kernel(const float* __restrict__ llr, const bool* __restrict__ valid,
         const float te = tanhf(-0.5f * (st.zn[eg[i] & 255] - st.tov[e]));
         lt_own[i] = log2f(fmaxf(fabsf(te), 0x1p-80f));
         st.t[e] = te;
-        if constexpr (kFast) {
-          st.lt[e] = round_bf16(lt_own[i]);
-          st.lt_lo[e] = round_bf16(lt_own[i] - st.lt[e]);
-        } else {
+        if constexpr (kFast)
+          st.lt[e] = pack_split2(lt_own[i]);
+        else
           st.lt[e] = lt_own[i];
-        }
         neg_own |= static_cast<unsigned>(te < 0.f) << i;
       }
       __syncthreads();
+      // the check sums
       if (j < kChecks) {
         int neg = st.t[lo] < 0.f;
-        if constexpr (kFast) {  // the high parts' sum plus the low parts'
-          float Sh = st.lt[lo];
-          float Sl = st.lt_lo[lo];
+        if constexpr (kFast) {  // the high parts' sum plus the low parts', a word a term
+          float Sh = split_high(st.lt[lo]);
+          float Sl = split_low(st.lt[lo]);
 #pragma unroll
           for (int k = 1; k < kDegree; ++k) {
             if (lo + k < hi) {
-              Sh += st.lt[lo + k];
-              Sl += st.lt_lo[lo + k];
+              const unsigned w = st.lt[lo + k];
+              Sh += split_high(w);
+              Sl += split_low(w);
               neg += st.t[lo + k] < 0.f;
             }
           }

@@ -82,17 +82,17 @@ __device__ __forceinline__ unsigned mul_bf16x2(unsigned a, unsigned b) {
   return d;
 }
 
-// i * b: (-b.y, b.x)
-__device__ __forceinline__ unsigned rot_bf16(unsigned b) {
-  return __byte_perm(b, 0, 0x1032) ^ 0x8000u;
+// b's two forms for cmul_bf16: (b.x, b.x) and (b.y, -b.y)
+__device__ __forceinline__ uint2 bf16_forms(unsigned b) {
+  return make_uint2(__byte_perm(b, 0, 0x1010), __byte_perm(b, 0, 0x3232) ^ 0x80000000u);
 }
 
-// a * b in bf16, given bi = rot_bf16(b): (a.x b.x - a.y b.y, a.x b.y + a.y b.x)
-// as the two rounded products (a.x b.x, a.x b.y) plus (-a.y b.y, a.y b.x),
-// rounded once more
-__device__ __forceinline__ unsigned cmul_bf16(unsigned a, unsigned b, unsigned bi) {
-  return add_bf16x2(mul_bf16x2(__byte_perm(a, 0, 0x1010), b),
-                    mul_bf16x2(__byte_perm(a, 0, 0x3232), bi));
+// a * b in bf16 from b's forms: (a.x b.x, a.y b.x) plus, swapped, (a.x b.y,
+// -a.y b.y), that is (a.x b.x - a.y b.y, a.y b.x + a.x b.y) with each product
+// and sum rounded once: precision.cmul_bf16's bits (x - y is x + (-y), and
+// neither a product nor a sum of two depends on the order of its operands).
+__device__ __forceinline__ unsigned cmul_bf16(unsigned a, uint2 bf) {
+  return add_bf16x2(mul_bf16x2(a, bf.x), __byte_perm(mul_bf16x2(a, bf.y), 0, 0x1032));
 }
 
 // The 12 matched-filter taps into registers, rounded to bf16 in fast mode.
@@ -234,6 +234,173 @@ __device__ __forceinline__ void warp_tail(const float2* fr, const float2* __rest
 #pragma unroll
   for (int j = 0; j < kSoftbitSlots; ++j)
     if (lane + 32 * j < kSoftbits) stage[lane + 32 * j] = v[j];
+  __syncwarp();
+  const float4 w = *reinterpret_cast<const float4*>(stage + 4 * lane + (lane < 12 ? 8 : 16));
+  __syncwarp();  // read before the warp's next tail writes stage
+  reinterpret_cast<float4*>(sb_out)[lane] =
+      make_float4(scale * w.x, scale * w.y, scale * w.z, scale * w.w);
+  if (lane == 0) *nbad_out = nbad;
+}
+
+// ---- kFast: the matched-filter tail on the tensor cores (kernel B2) ---------
+//
+// The 144 softbits' 12-tap sums as one bf16 matrix product. Softbit t reads
+// frame samples (6(t - 1) + i) mod 864, i < 12: with f = sample + 6 (f < 6:
+// samples 858-863 again), t = 4j + m reads f = 24j + 6m + i. So row j < 36
+// of A is the 32 words f = 24j ... 24j + 31 (30 samples and two zero pads),
+// each sample one (x, y) pair of K = 64, and column 2m + e of B (64 by 8) is
+// the taps pp at rows 2(6m + i) + e: A B holds (sum z.x pp, sum z.y pp) of
+// the four softbits of row j. Three 16-row tiles, four k-steps of
+// m16n8k16 each (the last half tile, rows 40-47, unused).
+
+// The frame in shared memory, packed bf16 pairs (pack_bf16's layout), word
+// f at frame_word(f): four words of padding after every 24, so that rows
+// 24 samples apart sit 28 words apart and a fragment load's eight rows and
+// four columns meet 32 banks. f < 872: 6 + 864 + the two zero pads.
+constexpr int kFrameLead = 6;
+constexpr int kRowSamples = 24;
+constexpr int kRowPad = 4;
+constexpr int kTailRows = 36;
+constexpr int kFrameWords = 872;
+constexpr int kPackedFrameWords = kFrameWords + kRowPad * (kFrameWords / kRowSamples);  // 1016
+constexpr int kTailBWords = 8 * 32;  // B's fragments: 8 words a lane
+
+__host__ __device__ constexpr int frame_word(int f) { return f + kRowPad * (f / kRowSamples); }
+
+// D += A B by mma.sync m16n8k16, bf16 operands, float32 accumulation. With
+// g = lane / 4 and t = lane % 4: a holds A's rows g, g + 8 at columns
+// (2t, 2t + 1) and then (2t + 8, 2t + 9), each register a pair, the lower
+// column in the low half; b0, b1 hold B's rows (2t, 2t + 1) and (2t + 8,
+// 2t + 9) of column g; d holds (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8,
+// 2t + 1). Kernels B1 (scan.cu) and B2 (mma_tail) in kFast.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// B's fragments into tail_b (kTailBWords, shared by a block's warps): word
+// 32 (2 kk + i) + lane is lane (g, c)'s register i of k-step kk, column g
+// (softbit 4j + g / 2, part g % 2) at sample o = 8 kk + 4 i + c of the row:
+// (pp[o - 6m], 0) or (0, pp[o - 6m]), the taps rounded to bf16, zero where
+// o - 6m is no tap. Ends in no barrier.
+__device__ __forceinline__ void store_tail_b(const float* __restrict__ pp12, unsigned* tail_b) {
+  for (int w = threadIdx.x; w < kTailBWords; w += blockDim.x) {
+    const int lane = w & 31, g = lane >> 2;
+    const int tap = 4 * (w >> 5) + (lane & 3) - 6 * (g >> 1);
+    const float p = tap >= 0 && tap < 12 ? pp12[tap] : 0.f;
+    tail_b[w] = pack_bf16(g & 1 ? make_float2(0.f, p) : make_float2(p, 0.f));
+  }
+}
+
+// A lane's constants of mma_tail: its sync taps conj(cb42)[lane] and [32 +
+// lane] (packed bf16, zero past 42) and the sync word's signs (bit k set
+// where sync_pm[k] < 0).
+struct MmaTaps {
+  unsigned sc[2];
+  unsigned neg_pm;
+};
+
+__device__ __forceinline__ MmaTaps load_mma_taps(const float2* __restrict__ sync_conj,
+                                                 const int* __restrict__ sync_pm) {
+  const int lane = threadIdx.x & 31;
+  MmaTaps t;
+  t.sc[0] = pack_bf16(sync_conj[lane]);
+  t.sc[1] = lane + 32 < kSyncTaps ? pack_bf16(sync_conj[lane + 32]) : 0u;
+  t.neg_pm = 0u;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) t.neg_pm |= static_cast<unsigned>(sync_pm[k] < 0) << k;
+  return t;
+}
+
+// Kernel B2's matched-filter tail in kFast, for one packed frame fr
+// (kPackedFrameWords, frame_word's layout, its zero pads written) on one
+// warp: all 32 lanes call it, and it passes no block barrier. The function
+// of warp_tail<true>, in another order of sums and with the derotation
+// after the taps (ops/precision.py, last paragraph). Carrier phase: s =
+// sum_i z[i] conj(cb42[i]) + z[336 + i] conj(cb42[i]), i < 42, a lane's
+// taps, then the warp's; cfac = conj(s) / |s| = (cre, cim). Softbits: A B
+// on the tensor cores (above), twelve mma.sync; lane (g, c) receives (X, Y)
+// of softbit 4j + c for its rows j, which is t = lane + 32s, s < 5 (lanes
+// 0-15 five, the rest four: warp_tail's layout), and derotates it in
+// float32: Q rail (t even) cim X + cre Y, I rail cre X - cim Y. Mean and
+// variance of the 144 in any order, nbadsync by ballot as warp_tail, and
+// the scaled data softbits [8:56) + [64:144) out through `stage` (144
+// floats, 16-byte aligned, the warp's own) as one coalesced 512-byte row.
+__device__ __forceinline__ void mma_tail(const unsigned* fr, const unsigned* tail_b,
+                                         const MmaTaps& tp, float* stage,
+                                         float* __restrict__ sb_out,
+                                         int* __restrict__ nbad_out) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+
+  auto sample = [&](int l) { return unpack_bf16(fr[frame_word(l + kFrameLead)]); };
+  const float2 sc0 = unpack_bf16(tp.sc[0]), sc1 = unpack_bf16(tp.sc[1]);
+  float2 s = cadd(cmul(sample(lane), sc0), cmul(sample(kSecondSync + lane), sc0));
+  if (lane + 32 < kSyncTaps) {
+    s = cadd(s, cmul(sample(lane + 32), sc1));
+    s = cadd(s, cmul(sample(kSecondSync + lane + 32), sc1));
+  }
+  s.x = warp_sum(s.x);
+  s.y = warp_sum(s.y);
+  const float inv = 1.f / fmaxf(sqrtf(s.x * s.x + s.y * s.y), 1e-30f);
+  const float cre = s.x * inv;
+  const float cim = -s.y * inv;
+
+  // tile mt: rows 16 mt + g and + 8, the last tile's rows 32 + g (past row
+  // 35 a copy of row 35, never used) and zeros for rows 40-47; k-step kk:
+  // samples 8 kk .. 8 kk + 7 of a row, the last eight after the row's pad
+  constexpr int kRowWords = kRowSamples + kRowPad;
+  const unsigned* row_g = fr + kRowWords * g + c;
+  const unsigned* row_last = fr + kRowWords * min(32 + g, kTailRows - 1) + c;
+  auto a = [&](int mt, int h, int o) {
+    if (mt == 2) return h ? 0u : row_last[o];
+    return row_g[kRowWords * (16 * mt + 8 * h) + o];
+  };
+  float d[3][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int o = 8 * kk + (kk == 3 ? kRowPad : 0);
+    const unsigned b0 = tail_b[32 * (2 * kk) + lane], b1 = tail_b[32 * (2 * kk + 1) + lane];
+#pragma unroll
+    for (int mt = 0; mt < 3; ++mt) {
+      const unsigned frag[4] = {a(mt, 0, o), a(mt, 1, o), a(mt, 0, o + 4), a(mt, 1, o + 4)};
+      mma_bf16(d[mt], frag, b0, b1);
+    }
+  }
+  // slot s = 2 mt + h: softbit t = lane + 32 s
+  const float X[kSoftbitSlots] = {d[0][0], d[0][2], d[1][0], d[1][2], d[2][0]};
+  const float Y[kSoftbitSlots] = {d[0][1], d[0][3], d[1][1], d[1][3], d[2][1]};
+
+  // a lane's softbits are all on one rail (t and lane have one parity)
+  const bool q_rail = (lane & 1) == 0;
+  const float ca = q_rail ? cim : cre;
+  const float cb = q_rail ? cre : -cim;
+  const int slots = lane + 32 * (kSoftbitSlots - 1) < kSoftbits ? 5 : 4;  // lanes 0-15: 5
+  float v[kSoftbitSlots];
+  float sum = 0.f, sum2 = 0.f;
+#pragma unroll
+  for (int j = 0; j < kSoftbitSlots; ++j) {
+    v[j] = j < slots ? ca * X[j] + cb * Y[j] : 0.f;
+    sum += v[j];
+    sum2 += v[j] * v[j];
+  }
+  sum = warp_sum(sum);
+  sum2 = warp_sum(sum2);
+  const float sav = sum / static_cast<float>(kSoftbits);
+  const float s2av = sum2 / static_cast<float>(kSoftbits);
+  const float ssig = sqrtf(fmaxf(s2av - sav * sav, 1e-30f));
+  const float scale = 2.f / (ssig * 0.36f);
+
+  const bool neg_pm = tp.neg_pm >> (lane & 7) & 1u;
+  const bool bad = (lane < 8 && (v[0] < 0.f) != neg_pm) || (lane >= 24 && (v[1] < 0.f) != neg_pm);
+  const int nbad = __popc(__ballot_sync(0xffffffffu, bad));
+
+#pragma unroll
+  for (int j = 0; j < kSoftbitSlots; ++j)
+    if (j < slots) stage[lane + 32 * j] = v[j];
   __syncwarp();
   const float4 w = *reinterpret_cast<const float4*>(stage + 4 * lane + (lane < 12 ? 8 : 16));
   __syncwarp();  // read before the warp's next tail writes stage

@@ -425,20 +425,6 @@ scan_kernel(const float2* __restrict__ c, const float2* __restrict__ B,
 
 // ---- kFast: the correlation on the tensor cores --------------------------------
 
-// D += A B by mma.sync m16n8k16, bf16 operands, float32 accumulation. With
-// g = lane / 4 and t = lane % 4: a holds A's rows g, g + 8 at columns
-// (2t, 2t + 1) and then (2t + 8, 2t + 9), each register a pair, the lower
-// column in the low half; b0, b1 hold B's rows (2t, 2t + 1) and (2t + 8,
-// 2t + 9) of column g; d holds (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8,
-// 2t + 1).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Samples s and s + 1 of a bf16 plane as one operand register, s in the
 // low half: one aligned 32-bit load where s is even (every s at dec 2 and
 // 4), two 16-bit loads at dec 1.

@@ -12,9 +12,9 @@
 //   frame[l] = (sum_m c[(pos + 864m + l) mod N] * gamma[m, k]) * W[f, l],
 //              k = (pos + 864m + l) >= N,  l < 864
 // (pos < N and 864m + l < N, so k <= 1), then the warp-level matched-filter
-// tail msk::warp_tail (common.cuh, shared with kernel B4): carrier phase, the
-// 144 softbits, their scale and nbadsync. Every phase is a table value (W,
-// chi, cb42), none an in-kernel sincos.
+// tail msk::warp_tail (common.cuh, shared with kernel B4; kFast: mma_tail):
+// carrier phase, the 144 softbits, their scale and nbadsync. Every phase is
+// a table value (W, chi, cb42), none an in-kernel sincos.
 //
 // What bounds it on the H100: per row about 3-6 x 864 complex reads of the
 // window (41 KB, shared by the window's 512 rows) and a few thousand FLOPs,
@@ -40,19 +40,31 @@
 //
 // kFast (DecoderConfig.fast_math; ops/precision.py, B2) rounds where the JAX
 // kernel's fast mode does (pallas_survivor.py:107-109, 191-197, 285-296,
-// 334-351): the block stages its window as bf16 pairs (half the bytes), the
-// gamma lanes read W[f, 128q], W[f, r], W[f, 864m] and conj(1 + chi) rounded
-// to bf16, form gamma in FP32 without fused multiply-adds (as the plain
-// version) and round it; the mix and the pattern sum are in bf16; the
-// carrier is W[f, 128j] W[f, r] in bf16 from a per-warp table of the 135
-// rounded values (in place of the cp.async of W[f, l]), and the frame times
-// the carrier is in bf16; the tail takes bf16 operands (warp_tail<true>).
+// 334-351): the block stages its window as bf16 pairs (half the bytes, 16
+// bytes read a thread and step), the gamma lanes read W[f, 128q], W[f, r],
+// W[f, 864m] and conj(1 + chi) rounded to bf16, form gamma in FP32 without
+// fused multiply-adds (as the plain version) and round it; the mix and the
+// pattern sum are in bf16; the carrier is W[f, 128j] W[f, r] in bf16 from a
+// per-warp table of the 128 rounded W[f, r] and the 7 W[f, 128j] (in place
+// of the cp.async of W[f, l]), and the frame times the carrier is in bf16.
 // The bf16 arithmetic runs on packed pairs (common.cuh cmul_bf16, one
 // rounding per instruction, equal bit for bit to the plain version's
-// float32-then-round): a sample and frame costs two byte permutes, two
-// multiplies and two adds, and the 27 sums of a lane take 27 registers. The
-// same arithmetic by float32 operations and a conversion after each was
-// 3.3x the FP32 instantiation's time at the main path's 64 x 512 rows.
+// float32-then-round): a sample and frame of the mix costs one byte
+// permute, two multiplies and two adds (gamma's two forms taken once per
+// frame), and the 27 sums of a lane take 27 registers. The same arithmetic by float32 operations and a
+// conversion after each was 3.3x the FP32 instantiation's time at the main
+// path's 64 x 512 rows. The frame is exactly bf16, so the warp keeps it
+// packed, one word a sample (4 KB with common.cuh frame_word's padding; the
+// frame times the carrier stored as computed), and the tail is common.cuh
+// mma_tail: the 144 softbits' 12-tap sums as one bf16 matrix product on
+// the tensor cores (twelve mma.sync a row, B's fragments in one table per
+// block), derotated after the taps, its mean and variance in any order.
+// The window (20.7 KB) and eight warps' frames, stages and carrier tables
+// take 63,488 bytes: three blocks, 24 warps per SM, at most 80 registers a
+// thread. Measured slower (PERF.md section 6): two blocks per SM (128
+// registers); a first tail of 18 mma.sync a row on rows of 12 samples (two
+// of B's eight columns used), which spent a third of its time deriving
+// each lane's few softbits.
 
 #include "common.cuh"
 
@@ -61,9 +73,9 @@ namespace {
 using namespace msk;
 
 constexpr int kMaxWarps = 8;
-constexpr int kFrameBytes = kFrameLen * static_cast<int>(sizeof(float2));
 constexpr int kStageBytes = kSoftbits * static_cast<int>(sizeof(float));
-constexpr int kCarrierTab = 136;  // kFast: W[f, r], r < 128, then W[f, 128j], j < 7 (and a pad)
+// kFast: W[f, r], r < 128, then the two forms (bf16_forms) of W[f, 128j], j < 7
+constexpr int kCarrierTab = 128 + 2 * 7 + 2;  // (and a pad)
 constexpr int kCarrierBytes = kCarrierTab * static_cast<int>(sizeof(unsigned));
 
 // The window's bytes in shared memory: complex64, or packed bf16 pairs in kFast.
@@ -71,16 +83,28 @@ __host__ __device__ constexpr int window_bytes(bool fast) {
   return kWindowLen * static_cast<int>(fast ? sizeof(unsigned) : sizeof(float2));
 }
 
-// A block's shared memory: the window, the warps' frames, their tails'
-// output staging and, in kFast, their carrier tables.
-constexpr int smem_bytes(bool fast, int warps) {
-  return window_bytes(fast) + warps * (kFrameBytes + kStageBytes + (fast ? kCarrierBytes : 0));
+// A warp's frame: complex64, or packed bf16 pairs in kFast (common.cuh
+// frame_word).
+__host__ __device__ constexpr int frame_bytes(bool fast) {
+  return fast ? kPackedFrameWords * static_cast<int>(sizeof(unsigned))
+              : kFrameLen * static_cast<int>(sizeof(float2));
 }
+
+// A block's shared memory: the window, the warps' frames, their tails'
+// output staging and, in kFast, their carrier tables and the tails' B
+// fragments (one table). kFast: 63,488 bytes at 8 warps, three blocks per SM.
+constexpr int smem_bytes(bool fast, int warps) {
+  return window_bytes(fast) +
+         warps * (frame_bytes(fast) + kStageBytes + (fast ? kCarrierBytes : 0)) +
+         (fast ? kTailBWords * static_cast<int>(sizeof(unsigned)) : 0);
+}
+static_assert(3 * (smem_bytes(true, kMaxWarps) + 1024) <= 233472, "three kFast blocks per SM");
 
 // The mix and the pattern sum of one sample, window sample times gamma added
 // to the lane's sum: in float32 (cadd(acc, cmul(src, g))), or in kFast on
-// packed bf16 pairs (add_bf16x2(acc, cmul_bf16(src, g, i g))). word() is a
-// lane's gamma as the warp shuffles it, take() frame m's from lane m.
+// packed bf16 pairs (add_bf16x2(acc, cmul_bf16(src, gamma's forms))).
+// word() is a lane's gamma as the warp shuffles it, take() frame m's from
+// lane m.
 template <bool kFast>
 struct Mix;
 
@@ -103,22 +127,19 @@ template <>
 struct Mix<true> {
   using Sample = unsigned;
   using Word = unsigned;
-  struct Gamma {
-    unsigned g, gi;  // gamma and i * gamma, packed bf16
-  };
+  using Gamma = uint2;  // gamma's two forms (bf16_forms)
   static __device__ __forceinline__ Sample zero() { return 0u; }
   static __device__ __forceinline__ Word word(float2 g) { return pack_bf16(g); }
   static __device__ __forceinline__ Gamma take(Word w, int m) {
-    const unsigned g = __shfl_sync(0xffffffffu, w, m);
-    return {g, rot_bf16(g)};
+    return bf16_forms(__shfl_sync(0xffffffffu, w, m));
   }
   static __device__ __forceinline__ Sample mac(Sample acc, Sample src, Gamma g) {
-    return add_bf16x2(acc, cmul_bf16(src, g.g, g.gi));
+    return add_bf16x2(acc, cmul_bf16(src, g));
   }
 };
 
 template <bool kFast>
-__global__ void __launch_bounds__(32 * kMaxWarps, 2)
+__global__ void __launch_bounds__(32 * kMaxWarps, kFast ? 3 : 2)
 survivor_kernel(const float2* __restrict__ c, const float2* __restrict__ W,
                 const float2* __restrict__ chi, const int* __restrict__ pos,
                 const int* __restrict__ f_idx, const int* __restrict__ p_idx,
@@ -134,19 +155,38 @@ survivor_kernel(const float2* __restrict__ c, const float2* __restrict__ W,
   const int b = blockIdx.y;
   float2* win = reinterpret_cast<float2*>(smem);  // the window, once per block
   unsigned* winb = reinterpret_cast<unsigned*>(smem);  // kFast's, packed bf16
-  float2* frame =  // this warp's frame
-      reinterpret_cast<float2*>(smem + window_bytes(kFast)) + warp * kFrameLen;
+  // this warp's frame: float2 (frame), or packed bf16 in kFast (fr)
+  char* frame_base = smem + window_bytes(kFast) + warp * frame_bytes(kFast);
+  float2* frame = reinterpret_cast<float2*>(frame_base);
+  unsigned* fr = reinterpret_cast<unsigned*>(frame_base);
   const float2* cw = c + static_cast<size_t>(b) * kWindowLen;
   float pp[12];
-  load_taps<kFast>(pp12, pp);
+  MmaTaps taps;
+  if constexpr (kFast)
+    taps = load_mma_taps(sync_conj, sync_pm);
+  else
+    load_taps<false>(pp12, pp);
   // the tail's output staging, after the frames; kFast's carrier table after it
-  float* stage = reinterpret_cast<float*>(smem + window_bytes(kFast) + warps * kFrameBytes) +
+  float* stage = reinterpret_cast<float*>(smem + window_bytes(kFast) +
+                                          warps * frame_bytes(kFast)) +
                  warp * kSoftbits;
   unsigned* ctab = reinterpret_cast<unsigned*>(smem + window_bytes(kFast) +
-                                               warps * (kFrameBytes + kStageBytes)) +
+                                               warps * (frame_bytes(kFast) + kStageBytes)) +
                    warp * kCarrierTab;
-  if constexpr (kFast) {
-    for (int t = threadIdx.x; t < kWindowLen; t += blockDim.x) winb[t] = pack_bf16(cw[t]);
+  // kFast: the tails' B fragments, after the carrier tables
+  unsigned* tail_b = reinterpret_cast<unsigned*>(
+      smem + window_bytes(kFast) + warps * (frame_bytes(kFast) + kStageBytes + kCarrierBytes));
+  if constexpr (kFast) {  // two samples a thread and step, 16 bytes read, 8 written
+    const float4* cw4 = reinterpret_cast<const float4*>(cw);
+    uint2* winb2 = reinterpret_cast<uint2*>(winb);
+#pragma unroll 4
+    for (int t = threadIdx.x; t < kWindowLen / 2; t += blockDim.x) {
+      const float4 v = __ldg(cw4 + t);
+      winb2[t] = make_uint2(pack_bf16(make_float2(v.x, v.y)), pack_bf16(make_float2(v.z, v.w)));
+    }
+    store_tail_b(pp12, tail_b);
+    if (lane < kFrameWords - kFrameLead - kFrameLen)  // the frame's two zero pads
+      fr[frame_word(kFrameLead + kFrameLen + lane)] = 0u;
   } else {
     for (int t = threadIdx.x; t < kWindowLen; t += blockDim.x) cp_async8(win + t, cw + t);
   }
@@ -180,7 +220,8 @@ survivor_kernel(const float2* __restrict__ c, const float2* __restrict__ W,
     const float2* Wf = W + static_cast<size_t>(f_c) * kWindowLen;
     if constexpr (kFast) {  // the carrier's table values, rounded
       for (int r = lane; r < 128; r += 32) ctab[r] = pack_bf16(Wf[r]);
-      if (lane < 7) ctab[128 + lane] = pack_bf16(Wf[128 * lane]);
+      if (lane < 7)
+        reinterpret_cast<uint2*>(ctab + 128)[lane] = bf16_forms(pack_bf16(Wf[128 * lane]));
     } else {
       for (int l = lane; l < kFrameLen; l += 32) cp_async8(frame + l, Wf + l);  // W[f, l]
     }
@@ -244,9 +285,12 @@ survivor_kernel(const float2* __restrict__ c, const float2* __restrict__ W,
 #pragma unroll
       for (int n = 0; n < kFrameLen / 32; ++n) {
         const int l = lane + 32 * n;  // W[f, l] = W[f, 128j] W[f, r], l = 128j + r, in bf16
-        const unsigned r = ctab[l & 127];
-        const unsigned car = cmul_bf16(ctab[128 + (l >> 7)], r, rot_bf16(r));
-        frame[l] = unpack_bf16(cmul_bf16(acc[n], car, rot_bf16(car)));
+        const unsigned car =
+            cmul_bf16(ctab[l & 127], reinterpret_cast<const uint2*>(ctab + 128)[l >> 7]);
+        const unsigned v = cmul_bf16(acc[n], bf16_forms(car));
+        fr[frame_word(kFrameLead + l)] = v;
+        if (n == kFrameLen / 32 - 1 && l >= kFrameLen - kFrameLead)  // words 0-5 repeat 858-863
+          fr[l - (kFrameLen - kFrameLead)] = v;
       }
     } else {
       cp_async_wait_all();  // each lane reads back only the W[f, l] it copied
@@ -258,7 +302,11 @@ survivor_kernel(const float2* __restrict__ c, const float2* __restrict__ W,
     }
     __syncwarp();
 
-    warp_tail<kFast>(frame, sync_conj, pp, sync_pm, stage, sb_out + row * 128, nbad_out + row);
+    // the matched-filter tail
+    if constexpr (kFast)
+      mma_tail(fr, tail_b, taps, stage, sb_out + row * 128, nbad_out + row);
+    else
+      warp_tail<false>(frame, sync_conj, pp, sync_pm, stage, sb_out + row * 128, nbad_out + row);
     __syncwarp();  // every lane is done with the frame before the next row's copy
   }
 }

@@ -189,7 +189,8 @@ def demod_survivors_cuda(c: torch.Tensor, W: torch.Tensor, chi: torch.Tensor,
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel B2 (csrc/survivor.cu): one warp per survivor row, blocks of
     rows_per_block rows of one window on up to 8 warps, B * S rows in one
-    launch; fast launches its bf16 instantiation. c (B, N) complex64; W
+    launch; fast launches its bf16 instantiation (its matched filter on the
+    tensor cores; c 16-byte aligned). c (B, N) complex64; W
     (F, N) complex64; chi (F,) complex64; pos/f_idx/p_idx (B, S) int32, all
     contiguous on one CUDA device."""
     nw = c.shape[0] if c.dim() == 2 else -1
@@ -206,6 +207,9 @@ def demod_survivors_cuda(c: torch.Tensor, W: torch.Tensor, chi: torch.Tensor,
                           pp12=(dt.pp12, torch.float32, (12,)),
                           masks=(dt.masks, torch.int32, (8, _M)),
                           sync_pm=(dt.sync_pm, torch.int32, (C.SYNC_LEN_BITS,)))
+    if fast and c.data_ptr() % 16:
+        raise ValueError("demod_survivors: the bf16 kernel reads c 16 bytes at a time; "
+                         "c must be 16-byte aligned")
     sb = torch.empty((nw, S, C.NUM_DATA_BITS), dtype=torch.float32, device=c.device)
     nbad = torch.empty((nw, S), dtype=torch.int32, device=c.device)
     if nw and S:

@@ -92,35 +92,42 @@ def load_kernels(pkg_root: pathlib.Path, name: str):
     return mod
 
 
-def split_trees(pkg_root: pathlib.Path, dest: pathlib.Path, tag: str) -> dict:
-    """Copies of a package whose scan.cu stops after each phase: {phase:
-    package root}."""
-    src = (pkg_root / "csrc" / "scan.cu").read_text()
-    cuts = next(c for c in CUTS.values() if all(src.count(a) == 1 for a, _ in c))
+def split_trees(pkg_root: pathlib.Path, dest: pathlib.Path, tag: str, source: str = "scan.cu",
+                cuts: dict = CUTS, phases: tuple = PHASES) -> dict:
+    """Copies of a package whose csrc/<source> stops after each phase: {phase:
+    package root}. cuts holds each design's (anchor, sink) per phase; the
+    design is the one whose anchors all occur once in the source."""
+    src = (pkg_root / "csrc" / source).read_text()
+    design = next(c for c in cuts.values() if all(src.count(a) == 1 for a, _ in c))
     trees = {}
-    for phase, (anchor, sink) in zip(PHASES, cuts):
+    for phase, (anchor, sink) in zip(phases, design):
         root = dest / f"split_{tag}_{phase.replace(' ', '_')}" / "msk144cudecoder_tpu_torch"
         shutil.rmtree(root.parent, ignore_errors=True)
         shutil.copytree(pkg_root, root, ignore=shutil.ignore_patterns("_build", "__pycache__"))
-        (root / "csrc" / "scan.cu").write_text(src.replace(anchor, sink + anchor))
+        (root / "csrc" / source).write_text(src.replace(anchor, sink + anchor))
         trees[phase] = root
     return trees
 
 
 def template_args(mangled: str, kernel: str):
-    m = re.search(rf"{len(kernel)}{kernel}I((?:Li-?\d+E)+)E", mangled)
-    return ",".join(re.findall(r"Li(-?\d+)E", m.group(1))) if m else None
+    """A kernel instance's template arguments ("4,4" for <4, 4>, "1" for
+    <true>) from its mangled name, or None if the name is not kernel's."""
+    m = re.search(rf"{len(kernel)}{kernel}I((?:L[ib]-?\d+E)+)E", mangled)
+    return ",".join(re.findall(r"L[ib](-?\d+)E", m.group(1))) if m else None
 
 
-def build_report(lib_path: pathlib.Path) -> dict:
-    """{kernel: {"dec,tile": [registers, spill-store bytes, spill-load
-    bytes, HMMA instructions]}} of the scan kernels in the library."""
+SCAN_KERNELS = ("scan_kernel", "scan_fast_kernel")
+
+
+def build_report(lib_path: pathlib.Path, names: tuple = SCAN_KERNELS) -> dict:
+    """{kernel: {"template arguments": [registers, spill-store bytes,
+    spill-load bytes, HMMA instructions]}} of the named kernels' instances
+    in the library (the scan kernels' arguments are "dec,tile")."""
     rep: dict = {}
     cur = None
     for ln in lib_path.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in ln:
-            cur = next(((k, a) for k in ("scan_kernel", "scan_fast_kernel")
-                        if (a := template_args(ln, k))), None)
+            cur = next(((k, a) for k in names if (a := template_args(ln, k))), None)
             if cur:
                 rep.setdefault(cur[0], {})[cur[1]] = [0, 0, 0, 0]
         elif cur and "spill stores" in ln:

@@ -315,6 +315,33 @@ def test_survivor_fast_kernel_matches_fast_plain(cuda, n_win, plant):
     hw.check_survivor(pipe, c, plant)
 
 
+@pytest.mark.parametrize("case", ["S=1", "S=37", "S=512 wrap lags"])
+def test_survivor_fast_kernel_ragged_and_wrapped_rows(setup, case):
+    """Kernel B2's bf16 instantiation (three blocks per SM, its matched
+    filter on the tensor cores) on one-warp blocks, a ragged last block and
+    lags at the window's wrap points, every pattern 0-7 planted, against
+    demod_survivors_plain(fast) by check_survivor's fast rule: softbits
+    within 5e-3 relative, nbadsync unequal only where a plain sync softbit
+    lies within one bf16 ulp of 0."""
+    kw = SURVIVOR_CASES[case]
+    _, pipe, c = setup
+    pipe = pipeline.DecodePipeline(DecoderConfig(fast_math=True)).to(c.device)
+    _, pos_f, f_idx, p_idx = (t.clone() for t in pipe.prefilter(*pipe.scan(c))[:4])
+    rep = -(-kw["S"] // pos_f.shape[1])
+    pos_f, f_idx, p_idx = (t.repeat(1, rep)[:, : kw["S"]].contiguous()
+                           for t in (pos_f, f_idx, p_idx))
+    p_idx[:, :16] = (torch.arange(16, device=c.device, dtype=torch.int32) % 8)[: kw["S"]]
+    if "lags" in kw:
+        pos_f[:, : len(kw["lags"])] = torch.tensor(kw["lags"], dtype=torch.int32,
+                                                   device=c.device)
+    args = (c, pipe.W, pipe.chi, pos_f, f_idx, p_idx, pipe.demod_tables, True)
+    sb_k, nb_k = survivor.demod_survivors_cuda(*args)
+    sb_p, nb_p = survivor.demod_survivors_plain(*args)
+    _, near = survivor.nbadsync_agreement(*args[:7], nb_k, nb_p, hw.NEAR_FAST, True)
+    assert near and torch.isfinite(sb_k).all()
+    assert ((sb_k - sb_p).abs() / (sb_p.abs() + 1e-3)).max().item() < 5e-3
+
+
 @pytest.mark.parametrize("case", [0, 1])
 def test_bp_fast_kernel_matches_fast_plain(cuda, case):
     """Kernel B3's bf16 instantiation against bp_decode_plain(fast) on the

@@ -14,7 +14,7 @@ from msk144cudecoder_tpu.ops import pallas_ldpc
 from msk144cudecoder_tpu.protocol import crc as crc_mod
 from msk144cudecoder_tpu.protocol import ldpc_tables as T
 from msk144cudecoder_tpu_torch.config import DecoderConfig
-from msk144cudecoder_tpu_torch.ops import ldpc, pipeline, tables
+from msk144cudecoder_tpu_torch.ops import kernels, ldpc, pipeline, precision, tables
 
 torch.set_num_threads(2)
 LT = tables.ldpc_to_torch("cpu")
@@ -141,3 +141,51 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     llr = torch.from_numpy(llr_batch(8, 4, 1))
     with pytest.raises(ValueError, match="CUDA tensor"):
         ldpc.bp_decode_cuda(llr, torch.ones(8, dtype=torch.bool), LT)
+
+
+def test_fast_check_sums_one_word_per_edge():
+    """Kernel B3's bf16 check sums, modelled on the CPU: each edge's log2
+    term as its two bf16 parts in one 32-bit word (the high part in the low
+    half, as pack_bf16 packs), the high parts' and the low parts' sums as
+    two chains in slot order (threads 2k and 2k + 1), then split2(high +
+    low), the high part read by a byte permute that moves the low half up:
+    the leave-one-out equals
+    ldpc.loo_log_domain(fast) bit for bit, |t| at the log2 floor included."""
+    rng = np.random.default_rng(4)
+    ev = T.NM >= 0
+    t = np.tanh(rng.normal(0, 3, (64, 38, 11))).astype(np.float32)
+    t[:, :, 0][rng.random((64, 38)) < 0.05] = 0.0
+    t = np.where(ev, t, 1.0).astype(np.float32)
+    lt = torch.log2(torch.clamp_min(torch.from_numpy(t).abs(), 2.0 ** -80))
+    h = precision.round_bf16(lt)
+    lo = precision.round_bf16(lt - h)
+    word = (h.numpy().view(np.uint32) >> 16) | (lo.numpy().view(np.uint32) & 0xFFFF0000)
+    high = torch.from_numpy((word << 16).view(np.float32))
+    low = torch.from_numpy((word & 0xFFFF0000).view(np.float32))
+    assert torch.equal(high, h) and torch.equal(low, lo)
+    sh, sl = high[..., 0], low[..., 0]
+    for k in range(1, 11):
+        sh, sl = sh + high[..., k], sl + low[..., k]
+    mag = torch.exp2(ldpc.split2(sh + sl)[..., None] - lt)
+    neg = ((torch.from_numpy(t) < 0) & torch.from_numpy(ev)).to(torch.int32)
+    others = neg.sum(dim=-1, keepdim=True) - neg
+    loo = (1.0 - 2.0 * (others % 2).to(torch.float32)) * mag
+    assert torch.equal(loo, ldpc.loo_log_domain(torch.from_numpy(t), torch.from_numpy(ev), True))
+
+
+def test_kernel_compare_cuts_each_bp_phase(tmp_path):
+    """tools/kernel_compare.py's phase split of kernel B3 finds the source
+    line that ends each phase of an iteration of this tree's kernel (the
+    per-bit sum, the tanh-log2 pass, the check sums): every copy differs
+    from bp.cu by one sink, put before that line, that ends the iteration."""
+    from msk144cudecoder_tpu_torch.tools import kernel_compare, scan_compare
+
+    src = (kernels.CSRC_DIR / "bp.cu").read_text()
+    trees = scan_compare.split_trees(kernels.PKG_DIR, tmp_path, "this", "bp.cu",
+                                     kernel_compare.CUTS["bp"], kernel_compare.PHASES["bp"])
+    assert list(trees) == list(kernel_compare.PHASES["bp"])
+    for (anchor, sink), root in zip(kernel_compare.CUTS["bp"]["one word per edge"],
+                                    trees.values()):
+        cut = (root / "csrc" / "bp.cu").read_text()
+        assert cut == src.replace(anchor, sink + anchor) != src
+        assert sink.rstrip().endswith("continue;")
