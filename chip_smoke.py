@@ -10,10 +10,11 @@ caught, and any failure exits non-zero.
   0. environment: a CUDA device is required (exit 1 without one); prints the
      card's name and power limit, the torch, CUDA and nvcc versions; TF32 off
   1. build: compiles csrc/*.cu into the git-ignored _build/ (keyed on a hash
-     of the sources); logs ptxas's registers and spills (B2's and B3's per
-     instantiation), and checks in the SASS (cuobjdump) that every instance
-     of B1's bf16 kernel runs its correlation, and B2's bf16 instantiation
-     its matched filter, on the tensor cores (HMMA instructions)
+     of the sources); logs ptxas's registers and spills (B2's, B3's and
+     B4's per instantiation), and checks in the SASS (cuobjdump) that every
+     instance of B1's bf16 kernel runs its correlation, and B2's and B4's
+     bf16 instantiations their matched filter, on the tensor cores (HMMA
+     instructions)
   2. each kernel against its plain torch version on the card, at main-path
      shapes, with its time by CUDA events (queued: the calls back to back
      behind a device-side sleep; and not queued), the least time
@@ -32,7 +33,7 @@ caught, and any failure exits non-zero.
      the fast plain versions: B1 (on the tensor cores) at every shape of the
      float32 B1's, with its tile, registers, spills and HMMA count; B2 at
      every shape of the float32 B2's, B3 on the fast main path's rows and
-     on planted rows, B4 on the deep scan's 64 windows
+     on planted rows, B4 at every shape of the float32 B4's
   3. main path: the CLI on demo/capture.raw on the card decodes the three
      planted messages, with lines identical (but for date=) to --device=cpu;
      an in-process StreamDecoder pass over the demo launches the scan,
@@ -53,8 +54,9 @@ caught, and any failure exits non-zero.
      deep configs at B=1 and B=64 and of the full-demod path at the deep
      config, the per-stage split, and a torch.profiler trace of a few passes
      (device time per pass, busy share, the largest device entries); the
-     bf16 mode beside float32 at B=64 on the default and deep configs, in
-     turns (fp32, bf16, bf16, fp32), with the bf16 pass's stage split
+     bf16 mode beside float32 at B=64 on the default, deep and deep
+     full-demod configs, in turns (fp32, bf16, bf16, fp32), with the bf16
+     pass's stage split and profile
   7. the throughput CLI on the card: on the demo, --window-batch=8
      --pipeline-depth=4 prints the lines of --window-batch=1 on the card and
      of --device=cpu, with the prefilter on and off; on a long stream (the
@@ -271,15 +273,16 @@ def main() -> int:
         if "Used" in ln or "Compiling entry" in ln or "spill" in ln:
             log("[ptxas] " + ln.strip())
     # B1's bf16 instances compute the correlation on the tensor cores, B2's
-    # bf16 instantiation its matched filter
+    # and B4's bf16 instantiations their matched filter
     report = scan_compare.build_report(lib_path, ("scan_fast_kernel", "survivor_kernel",
-                                                  "bp_kernel"))
+                                                  "bp_kernel", "demod_kernel"))
     fast_scan = report["scan_fast_kernel"]
     assert fast_scan and all(v[3] > 0 for v in fast_scan.values()), fast_scan
     log("[build] B1 bf16 scan_fast_kernel<dec, tile>: HMMA instructions in the SASS per instance "
         + ", ".join(f"<{k}> {v[3]}" for k, v in fast_scan.items()))
     assert report["survivor_kernel"]["1"][3] > 0, report["survivor_kernel"]
-    for name in ("survivor_kernel", "bp_kernel"):
+    assert report["demod_kernel"]["1"][3] > 0, report["demod_kernel"]
+    for name in ("survivor_kernel", "bp_kernel", "demod_kernel"):
         log(f"[build] {name}<false> / <true>: "
             + "; ".join(f"{regs} registers, spills {st} B stored / {ld} B loaded, {hmma} HMMA"
                         for regs, st, ld, hmma in (report[name][k] for k in ("0", "1"))))
@@ -520,7 +523,8 @@ def main() -> int:
     # the bf16 mode beside float32 at B=64, in turns (fp32, bf16, bf16, fp32)
     raws = np.stack([demo_windows[i % len(demo_windows)] for i in range(64)])
     raw = torch.from_numpy(raws).to(dev)
-    for name, cfg in (("default", DecoderConfig()), ("deep", hw.DEEP)):
+    for name, cfg in (("default", DecoderConfig()), ("deep", hw.DEEP),
+                      ("deep full demod", hw.DEEP.replace(survivor_prefilter=0))):
         pipes = {fast: pipeline.DecodePipeline(cfg.replace(fast_math=fast)).to(dev)
                  for fast in (False, True)}
         turns = {False: [], True: []}

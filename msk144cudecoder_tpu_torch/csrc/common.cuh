@@ -40,13 +40,6 @@ __device__ __forceinline__ float2 round_bf16(float2 v) {
   return __bfloat1622float2(__float22bfloat162_rn(v));
 }
 
-// A matched-filter operand: rounded to bf16 in fast mode, as it is.
-template <bool kFast>
-__device__ __forceinline__ float2 mf_operand(float2 v) {
-  if constexpr (kFast) return round_bf16(v);
-  return v;
-}
-
 // a * b with every product and sum rounded on its own (no fused
 // multiply-add), as the plain versions compute it on the CPU.
 __device__ __forceinline__ float2 cmul_rn(float2 a, float2 b) {
@@ -95,11 +88,10 @@ __device__ __forceinline__ unsigned cmul_bf16(unsigned a, uint2 bf) {
   return add_bf16x2(mul_bf16x2(a, bf.x), __byte_perm(mul_bf16x2(a, bf.y), 0, 0x1032));
 }
 
-// The 12 matched-filter taps into registers, rounded to bf16 in fast mode.
-template <bool kFast>
+// The 12 matched-filter taps into registers (warp_tail).
 __device__ __forceinline__ void load_taps(const float* __restrict__ pp12, float (&pp)[12]) {
 #pragma unroll
-  for (int i = 0; i < 12; ++i) pp[i] = kFast ? round_bf16(pp12[i]) : pp12[i];
+  for (int i = 0; i < 12; ++i) pp[i] = pp12[i];
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -110,7 +102,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 constexpr int kSoftbits = 144;     // channel softbits of a frame
 constexpr int kSoftbitSlots = 5;   // softbits per lane in warp_tail: t = lane + 32j, j < 5
 
-// The matched-filter tail of kernels B2 and B4 (ops/pallas_demod.py::mf_tail
+// The float32 matched-filter tail of kernels B2 and B4 (ops/pallas_demod.py::mf_tail
 // and the tail of softbits.demod), for one frame on one warp: all 32 lanes
 // call it, and it passes no block barrier. fr[l] is frame sample l, l < 864:
 // B2 passes its frame buffer, B4 its pattern sum ZA_p at the candidate's
@@ -136,11 +128,7 @@ constexpr int kSoftbitSlots = 5;   // softbits per lane in warp_tail: t = lane +
 // popcount. Out come the scaled data softbits [8:56) + [64:144), regrouped
 // through `stage` (144 floats of shared memory, 16-byte aligned, the warp's
 // own) as one coalesced 512-byte row, a float4 per lane, to sb_out[0..128),
-// and the count to *nbad_out. kFast (ops/precision.py): every frame sample
-// and sync tap is rounded to bf16 as it is read (the caller rounds pp, by
-// load_taps), and every sum after that is float32, as the JAX kernels' bf16
-// matched-filter dot with float32 accumulation.
-template <bool kFast>
+// and the count to *nbad_out. kFast: mma_tail (below).
 __device__ __forceinline__ void warp_tail(const float2* fr, const float2* __restrict__ sync_conj,
                                           const float (&pp)[12],
                                           const int* __restrict__ sync_pm, float* stage,
@@ -150,9 +138,9 @@ __device__ __forceinline__ void warp_tail(const float2* fr, const float2* __rest
   float2 s1 = make_float2(0.f, 0.f);
   float2 s2 = make_float2(0.f, 0.f);
   for (int i = lane; i < kSyncTaps; i += 32) {
-    const float2 sc = mf_operand<kFast>(sync_conj[i]);
-    s1 = cadd(s1, cmul(mf_operand<kFast>(fr[i]), sc));
-    s2 = cadd(s2, cmul(mf_operand<kFast>(fr[kSecondSync + i]), sc));
+    const float2 sc = sync_conj[i];
+    s1 = cadd(s1, cmul(fr[i], sc));
+    s2 = cadd(s2, cmul(fr[kSecondSync + i], sc));
   }
   s1.x = warp_sum(s1.x);
   s1.y = warp_sum(s1.y);
@@ -181,10 +169,7 @@ __device__ __forceinline__ void warp_tail(const float2* fr, const float2* __rest
     v[j] = 0.f;
   }
   const int slots = lane + 32 * (kSoftbitSlots - 1) < kSoftbits ? 5 : 4;  // lanes 0-15: 5
-  auto tap = [&](int j, int i, float2 z) {
-    z = mf_operand<kFast>(z);
-    v[j] += (z.x * ca + z.y * cb) * pp[i];
-  };
+  auto tap = [&](int j, int i, float2 z) { v[j] += (z.x * ca + z.y * cb) * pp[i]; };
   auto pair = [&](int j, int i) {  // taps i, i + 1 (same side of 6) by one 16-byte load
     const float4 w = *reinterpret_cast<const float4*>(fr + (i < 6 ? lo[j] : hi[j]) + i);
     tap(j, i, make_float2(w.x, w.y));
@@ -242,7 +227,7 @@ __device__ __forceinline__ void warp_tail(const float2* fr, const float2* __rest
   if (lane == 0) *nbad_out = nbad;
 }
 
-// ---- kFast: the matched-filter tail on the tensor cores (kernel B2) ---------
+// ---- kFast: the matched-filter tail on the tensor cores (kernels B2, B4) ----
 //
 // The 144 softbits' 12-tap sums as one bf16 matrix product. Softbit t reads
 // frame samples (6(t - 1) + i) mod 864, i < 12: with f = sample + 6 (f < 6:
@@ -272,7 +257,7 @@ __host__ __device__ constexpr int frame_word(int f) { return f + kRowPad * (f / 
 // (2t, 2t + 1) and then (2t + 8, 2t + 9), each register a pair, the lower
 // column in the low half; b0, b1 hold B's rows (2t, 2t + 1) and (2t + 8,
 // 2t + 9) of column g; d holds (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8,
-// 2t + 1). Kernels B1 (scan.cu) and B2 (mma_tail) in kFast.
+// 2t + 1). Kernels B1 (scan.cu), B2 and B4 (mma_tail) in kFast.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
                                          unsigned b1) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
@@ -315,11 +300,70 @@ __device__ __forceinline__ MmaTaps load_mma_taps(const float2* __restrict__ sync
   return t;
 }
 
-// Kernel B2's matched-filter tail in kFast, for one packed frame fr
-// (kPackedFrameWords, frame_word's layout, its zero pads written) on one
-// warp: all 32 lanes call it, and it passes no block barrier. The function
-// of warp_tail<true>, in another order of sums and with the derotation
-// after the taps (ops/precision.py, last paragraph). Carrier phase: s =
+// Where mma_tail reads its frame: a functor with sample(l), the packed
+// frame sample l < 864, and word(mt, h, s), lane (g, c)'s word of A at row
+// 16 mt + 8 h + g (tile 2: row min(32 + g, 35), h = 0 only) and sample
+// 4 s + c of the row (s < 8). Two layouts: PackedFrame (kernel B2) and
+// LagFrame (kernel B4).
+//
+// PackedFrame: one packed frame (kPackedFrameWords, frame_word's layout,
+// its zero pads written).
+struct PackedFrame {
+  const unsigned* fr;
+  const unsigned* row_g;     // row g at column c
+  const unsigned* row_last;  // row min(32 + g, 35) at column c
+
+  __device__ __forceinline__ explicit PackedFrame(const unsigned* frame) : fr(frame) {
+    constexpr int kRowWords = kRowSamples + kRowPad;
+    const int lane = threadIdx.x & 31;
+    row_g = fr + kRowWords * (lane >> 2) + (lane & 3);
+    row_last = fr + kRowWords * min(32 + (lane >> 2), kTailRows - 1) + (lane & 3);
+  }
+  __device__ __forceinline__ unsigned sample(int l) const {
+    return fr[frame_word(l + kFrameLead)];
+  }
+  // samples 24-31 of a row after the row's pad
+  __device__ __forceinline__ unsigned word(int mt, int h, int s) const {
+    const int o = 4 * s + (s >= 6 ? kRowPad : 0);
+    return mt == 2 ? row_last[o] : row_g[(kRowSamples + kRowPad) * (16 * mt + 8 * h) + o];
+  }
+};
+
+// LagFrame: the frame at lag ps of a packed pattern sum za (kernel B4):
+// frame sample l is word ps + l (the pattern's samples 0-864 again after N,
+// so that no frame wraps; a frame reads up to ps + 865, a zero tap). Row
+// j's sample x is frame sample 24 j + x - 6, but for x < 6 of row 0 (lanes
+// g = 0, s < 2) the frame's own samples 858-863.
+struct LagFrame {
+  const unsigned* za;
+  int ps;
+  int base;     // row 0's word at column c as if it had no lead
+  int row0[2];  // row g's words at s = 0, 1 (lanes g = 0: the lead where x < 6)
+
+  __device__ __forceinline__ LagFrame(const unsigned* pattern_sum, int lag)
+      : za(pattern_sum), ps(lag) {
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2, c = lane & 3;
+    base = ps - kFrameLead + c;
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+      row0[s] = g == 0 && 4 * s + c < kFrameLead ? ps + kFrameLen - kFrameLead + 4 * s + c
+                                                 : base + kRowSamples * g + 4 * s;
+  }
+  __device__ __forceinline__ unsigned sample(int l) const { return za[ps + l]; }
+  __device__ __forceinline__ unsigned word(int mt, int h, int s) const {
+    if (mt == 0 && h == 0 && s < 2) return za[row0[s]];
+    const int g = (threadIdx.x & 31) >> 2;
+    const int row = mt == 2 ? min(32 + g, kTailRows - 1) : 16 * mt + 8 * h + g;
+    return za[base + kRowSamples * row + 4 * s];
+  }
+};
+
+// The matched-filter tail of kernels B2 and B4 in kFast, for one frame fr
+// (PackedFrame or LagFrame) on one warp: all 32 lanes call it, and it
+// passes no block barrier. The function of warp_tail with its operands
+// rounded to bf16, in another order of sums and with the derotation after
+// the taps (ops/precision.py, last paragraph). Carrier phase: s =
 // sum_i z[i] conj(cb42[i]) + z[336 + i] conj(cb42[i]), i < 42, a lane's
 // taps, then the warp's; cfac = conj(s) / |s| = (cre, cim). Softbits: A B
 // on the tensor cores (above), twelve mma.sync; lane (g, c) receives (X, Y)
@@ -329,14 +373,14 @@ __device__ __forceinline__ MmaTaps load_mma_taps(const float2* __restrict__ sync
 // variance of the 144 in any order, nbadsync by ballot as warp_tail, and
 // the scaled data softbits [8:56) + [64:144) out through `stage` (144
 // floats, 16-byte aligned, the warp's own) as one coalesced 512-byte row.
-__device__ __forceinline__ void mma_tail(const unsigned* fr, const unsigned* tail_b,
+template <class Frame>
+__device__ __forceinline__ void mma_tail(const Frame& fr, const unsigned* tail_b,
                                          const MmaTaps& tp, float* stage,
                                          float* __restrict__ sb_out,
                                          int* __restrict__ nbad_out) {
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, c = lane & 3;
 
-  auto sample = [&](int l) { return unpack_bf16(fr[frame_word(l + kFrameLead)]); };
+  auto sample = [&](int l) { return unpack_bf16(fr.sample(l)); };
   const float2 sc0 = unpack_bf16(tp.sc[0]), sc1 = unpack_bf16(tp.sc[1]);
   float2 s = cadd(cmul(sample(lane), sc0), cmul(sample(kSecondSync + lane), sc0));
   if (lane + 32 < kSyncTaps) {
@@ -351,22 +395,16 @@ __device__ __forceinline__ void mma_tail(const unsigned* fr, const unsigned* tai
 
   // tile mt: rows 16 mt + g and + 8, the last tile's rows 32 + g (past row
   // 35 a copy of row 35, never used) and zeros for rows 40-47; k-step kk:
-  // samples 8 kk .. 8 kk + 7 of a row, the last eight after the row's pad
-  constexpr int kRowWords = kRowSamples + kRowPad;
-  const unsigned* row_g = fr + kRowWords * g + c;
-  const unsigned* row_last = fr + kRowWords * min(32 + g, kTailRows - 1) + c;
-  auto a = [&](int mt, int h, int o) {
-    if (mt == 2) return h ? 0u : row_last[o];
-    return row_g[kRowWords * (16 * mt + 8 * h) + o];
-  };
+  // samples 8 kk .. 8 kk + 7 of a row (s = 2 kk, 2 kk + 1)
+  auto a = [&](int mt, int h, int s) { return mt == 2 && h ? 0u : fr.word(mt, h, s); };
   float d[3][4] = {};
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    const int o = 8 * kk + (kk == 3 ? kRowPad : 0);
     const unsigned b0 = tail_b[32 * (2 * kk) + lane], b1 = tail_b[32 * (2 * kk + 1) + lane];
 #pragma unroll
     for (int mt = 0; mt < 3; ++mt) {
-      const unsigned frag[4] = {a(mt, 0, o), a(mt, 1, o), a(mt, 0, o + 4), a(mt, 1, o + 4)};
+      const int s = 2 * kk;
+      const unsigned frag[4] = {a(mt, 0, s), a(mt, 1, s), a(mt, 0, s + 1), a(mt, 1, s + 1)};
       mma_bf16(d[mt], frag, b0, b1);
     }
   }

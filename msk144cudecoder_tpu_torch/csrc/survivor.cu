@@ -12,7 +12,7 @@
 //   frame[l] = (sum_m c[(pos + 864m + l) mod N] * gamma[m, k]) * W[f, l],
 //              k = (pos + 864m + l) >= N,  l < 864
 // (pos < N and 864m + l < N, so k <= 1), then the warp-level matched-filter
-// tail msk::warp_tail (common.cuh, shared with kernel B4; kFast: mma_tail):
+// tail msk::warp_tail (common.cuh; kFast: mma_tail; both shared with B4):
 // carrier phase, the 144 softbits, their scale and nbadsync. Every phase is
 // a table value (W, chi, cb42), none an in-kernel sincos.
 //
@@ -165,7 +165,7 @@ survivor_kernel(const float2* __restrict__ c, const float2* __restrict__ W,
   if constexpr (kFast)
     taps = load_mma_taps(sync_conj, sync_pm);
   else
-    load_taps<false>(pp12, pp);
+    load_taps(pp12, pp);
   // the tail's output staging, after the frames; kFast's carrier table after it
   float* stage = reinterpret_cast<float*>(smem + window_bytes(kFast) +
                                           warps * frame_bytes(kFast)) +
@@ -304,9 +304,9 @@ survivor_kernel(const float2* __restrict__ c, const float2* __restrict__ W,
 
     // the matched-filter tail
     if constexpr (kFast)
-      mma_tail(fr, tail_b, taps, stage, sb_out + row * 128, nbad_out + row);
+      mma_tail(PackedFrame(fr), tail_b, taps, stage, sb_out + row * 128, nbad_out + row);
     else
-      warp_tail<false>(frame, sync_conj, pp, sync_pm, stage, sb_out + row * 128, nbad_out + row);
+      warp_tail(frame, sync_conj, pp, sync_pm, stage, sb_out + row * 128, nbad_out + row);
     __syncwarp();  // every lane is done with the frame before the next row's copy
   }
 }

@@ -344,13 +344,15 @@ def fast_cases(cases) -> tuple:
     return tuple((cfg.replace(fast_math=True), *rest) for cfg, *rest in cases)
 
 
-# the fast instantiations: B1 and B2 at every shape of their float32 cases
-# (B2 on the main path's 64 windows, default and deep, and with wrap lags and
-# gap patterns planted), B4 on the deep scan's 64 windows (B3 on the fast
-# main path's rows: bp_inputs(fast=True))
+# the fast instantiations at every shape of their float32 cases: B1; B2 on
+# the main path's 64 windows, default and deep, and with wrap lags and gap
+# patterns planted; B4 on the deep scan's 64 windows, the default grid's 8,
+# 2 windows of the deep grid, and depth 8 (gap patterns 6 and 7) with k = 5,
+# lags planted at the window's wrap points in each (B3 on the fast main
+# path's rows: bp_inputs(fast=True))
 FAST_SCAN_CASES = fast_cases(SCAN_CASES)
 FAST_SURVIVOR_CASES = fast_cases(SURVIVOR_CASES)
-FAST_DEMOD_CASES = fast_cases(DEMOD_CASES[:1])
+FAST_DEMOD_CASES = fast_cases(DEMOD_CASES)
 
 
 def mode(cfg) -> str:

@@ -95,16 +95,26 @@ def load_kernels(pkg_root: pathlib.Path, name: str):
 def split_trees(pkg_root: pathlib.Path, dest: pathlib.Path, tag: str, source: str = "scan.cu",
                 cuts: dict = CUTS, phases: tuple = PHASES) -> dict:
     """Copies of a package whose csrc/<source> stops after each phase: {phase:
-    package root}. cuts holds each design's (anchor, sink) per phase; the
-    design is the one whose anchors all occur once in the source."""
+    package root}. cuts holds each design's (anchor, sink) per phase, or a
+    tuple of such pairs where the phase ends in several places (one per
+    instantiation); the design is the one whose anchors all occur once in
+    the source."""
     src = (pkg_root / "csrc" / source).read_text()
-    design = next(c for c in cuts.values() if all(src.count(a) == 1 for a, _ in c))
+
+    def pairs(cut):
+        return cut if isinstance(cut[0], tuple) else (cut,)
+
+    design = next(c for c in cuts.values()
+                  if all(src.count(a) == 1 for cut in c for a, _ in pairs(cut)))
     trees = {}
-    for phase, (anchor, sink) in zip(phases, design):
+    for phase, cut in zip(phases, design):
         root = dest / f"split_{tag}_{phase.replace(' ', '_')}" / "msk144cudecoder_tpu_torch"
         shutil.rmtree(root.parent, ignore_errors=True)
         shutil.copytree(pkg_root, root, ignore=shutil.ignore_patterns("_build", "__pycache__"))
-        (root / "csrc" / source).write_text(src.replace(anchor, sink + anchor))
+        cut_src = src
+        for anchor, sink in pairs(cut):
+            cut_src = cut_src.replace(anchor, sink + anchor)
+        (root / "csrc" / source).write_text(cut_src)
         trees[phase] = root
     return trees
 
@@ -197,6 +207,16 @@ def pipeline_outputs(tree: pathlib.Path, out: pathlib.Path) -> dict:
     return torch.load(out)
 
 
+def pipelines_equal(base: pathlib.Path) -> dict:
+    """{config: whether the float32 pipeline's outputs on the demo are bit
+    for bit those of the package under `base`}, for the default, full-demod
+    and deep configs."""
+    with tempfile.TemporaryDirectory() as tmp:
+        a = pipeline_outputs(base, pathlib.Path(tmp) / "base.pt")
+        b = pipeline_outputs(ROOT, pathlib.Path(tmp) / "this.pt")
+    return {n: all(torch.equal(a[n][f], b[n][f]) for f in a[n]) for n in a}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--base", required=True, type=pathlib.Path,
@@ -272,11 +292,7 @@ def main(argv=None) -> int:
                 print(f"phase split, {tag} bf16 tile {ft}, ms queued", hw.scan_name(cfg, nw),
                       json.dumps(t), flush=True)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        a = pipeline_outputs(args.base, pathlib.Path(tmp) / "base.pt")
-        b = pipeline_outputs(ROOT, pathlib.Path(tmp) / "this.pt")
-    report["pipeline float32 bit for bit"] = same = {
-        n: all(torch.equal(a[n][f], b[n][f]) for f in a[n]) for n in a}
+    report["pipeline float32 bit for bit"] = same = pipelines_equal(args.base)
     print("float32 pipeline outputs on the demo bit for bit with the base", same, flush=True)
     if args.json:
         args.json.write_text(json.dumps(report, indent=1) + "\n")

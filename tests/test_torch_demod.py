@@ -150,3 +150,46 @@ def test_pattern_average_is_the_ascending_frame_sum(windows, tabs):
         for m in np.nonzero(mask)[0]:
             acc = acc + torch.roll(z, -864 * int(m), dims=-1)
         assert torch.equal(za[:, :, p], acc), p
+
+
+def test_kernel_compare_cuts_each_demod_instantiation(tmp_path):
+    """tools/kernel_compare.py's phase split of kernel B4 (z and the pattern
+    sums, then the tails) finds the tail loop of each instantiation in this
+    tree's demod.cu, the float32 kernel's per pattern and the bf16 kernel's
+    per cell: the one copy differs from demod.cu by a sink before each, that
+    ends the pattern or the cell. A demod.cu with one tail loop for both
+    instantiations, as earlier trees have, is cut at that loop alone."""
+    from msk144cudecoder_tpu_torch.tools import kernel_compare, scan_compare
+
+    cuts, phases = kernel_compare.CUTS["demod"], kernel_compare.PHASES["demod"]
+    src = (kernels.CSRC_DIR / "demod.cu").read_text()
+    trees = scan_compare.split_trees(kernels.PKG_DIR, tmp_path / "this", "this", "demod.cu",
+                                     cuts, phases)
+    assert list(trees) == list(phases)
+    (pairs,) = cuts["packed bf16 sums"]
+    want = src
+    for anchor, sink in pairs:
+        assert src.count(anchor) == 1
+        assert sink.rstrip().endswith(("return;", "continue;"))
+        want = want.replace(anchor, sink + anchor)
+    assert (trees[phases[0]] / "csrc" / "demod.cu").read_text() == want != src
+
+    (f32_anchor, f32_sink), (fast_anchor, _) = pairs
+    old = tmp_path / "old" / "msk144cudecoder_tpu_torch"
+    (old / "csrc").mkdir(parents=True)
+    (old / "csrc" / "demod.cu").write_text(src.replace(fast_anchor, ""))
+    (root,) = scan_compare.split_trees(old, tmp_path / "old", "old", "demod.cu", cuts,
+                                       phases).values()
+    assert ((root / "csrc" / "demod.cu").read_text()
+            == src.replace(fast_anchor, "").replace(f32_anchor, f32_sink + f32_anchor))
+
+
+def test_battery_holds_demod_bf16_at_every_float32_shape():
+    """The on-card battery checks kernel B4's bf16 instantiation at every
+    shape it checks the float32 one: the deep scan's 64 windows, the default
+    grid's 8, 2 deep windows, and depth 8 with 5 candidates per pattern."""
+    from msk144cudecoder_tpu_torch.tools import run_hwtests as hw
+
+    assert all(cfg.fast_math for cfg, _ in hw.FAST_DEMOD_CASES)
+    assert [(cfg.replace(fast_math=False), nw) for cfg, nw in hw.FAST_DEMOD_CASES] == list(
+        hw.DEMOD_CASES)

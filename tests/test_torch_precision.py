@@ -235,17 +235,22 @@ def test_bp_fast_matches_jax_fast_kernel():
     assert int((r_p.iterations[r_p.found] >= 3).sum()) > 50  # the messages matter
 
 
-def test_demod_fast_matches_jax_fast_kernel(window, tabs):
+@pytest.mark.parametrize("depth", [4, 8])
+def test_demod_fast_matches_jax_fast_kernel(window, tabs, depth):
     """B4: demod_candidates_plain(fast) against pallas_demod.demod_pallas in
-    its fast mode on the scan's grid (F = 51, depth 4, k = 8), lags planted
-    at the window's wrap points; JAX's exact yardstick is its jnp demod."""
+    its fast mode on the scan's grid (F = 51, depth 4 or 8, k = 8), lags
+    planted at the window's wrap points (depth 8: also in the gap patterns
+    6 = {0, 3} and 7 = 6 + {4}); JAX's exact yardstick is its jnp demod."""
     tt, dt = tabs
-    pos, _ = port_scan(window, tabs, 4, 4, False)
-    pos.reshape(-1)[:6] = [0, 863, 864, 4320, 5183, 2591]
+    pos, _ = port_scan(window, tabs, depth, 4, False)
+    wraps = [0, 863, 864, 4320, 5183, 2591]
+    pos.reshape(-1)[:6] = wraps
+    if depth == 8:
+        pos[0, 6:, :6] = wraps
     with jax_fast():
         sb_j, nb_j = pallas_demod.demod_pallas(jnp.asarray(window), FREQS, jnp.asarray(pos),
                                                interpret=False, fast_math=True)
-    sb_e, _ = jsoftbits.demod_candidates(jnp.asarray(window), FREQS, 4, jnp.asarray(pos))
+    sb_e, _ = jsoftbits.demod_candidates(jnp.asarray(window), FREQS, depth, jnp.asarray(pos))
     c, p = torch.from_numpy(window)[None], torch.from_numpy(pos)[None]
     sb_p, nb_p = demod.demod_candidates_plain(c, tt.W, p, dt, fast=True)
     sb_0, _ = demod.demod_candidates_plain(c, tt.W, p, dt)
