@@ -83,9 +83,25 @@ caught, and any failure exits non-zero.
      lines identical (but for date=) to --device=cpu; each path driven in
      this process through StreamDecoder launches the scan, survivor and BP
      kernels
+ 10. CUDA graphs (ops/graphs.py, the counterpart of the JAX package's
+     jax.jit): for the default, deep, deep full-demod, IQ and
+     analytic-method-1 configs, in float32 and bf16, at B = 1 and 64, the
+     capture call and two consecutive replays on different inputs equal
+     the eager DecodePipeline.forward bit for bit in every field of
+     WindowDecodeResult, in distinct buffers, each replay launching one
+     eager pass's kernels; each graph's memory pool and the CLI's worst
+     case; the CLI with --fast-math on the demo decodes the fp32 run's
+     messages
 
-The checks of phases 2, 3 (the CLI lines), 4, 8 (MeshDecoder parity) and 9
-are the on-card battery's (msk144cudecoder_tpu_torch/tools/run_hwtests.py),
+Every StreamDecoder, CLI and MeshDecoder pass on the card above replays
+graphs. Phase 6 also times each config and B through the graph against the
+eager pipeline in turns (eager, graph, graph, eager), profiles replayed
+passes (wall, device ms, busy share; the trace names the path's kernels),
+and times the B=1 decode_block latency through the graph against its eager
+counterpart in turns.
+
+The checks of phases 2, 3 (the CLI lines), 4, 8 (MeshDecoder parity), 9 and
+10 are the on-card battery's (msk144cudecoder_tpu_torch/tools/run_hwtests.py),
 called from here so that the two cannot drift; the battery adds the
 sensitivity sweep, the streaming soak and the bf16 mode against float32
 (its precision step). The line before the last is the JSON kernel table
@@ -247,8 +263,9 @@ def main() -> int:
     from msk144cudecoder_tpu_torch import constants as C
     from msk144cudecoder_tpu_torch import stimulus
     from msk144cudecoder_tpu_torch.config import DecoderConfig
-    from msk144cudecoder_tpu_torch.ops import demod, kernels, ldpc, pipeline, scan, survivor
+    from msk144cudecoder_tpu_torch.ops import demod, graphs, kernels, ldpc, pipeline, scan, survivor
     from msk144cudecoder_tpu_torch.runtime import StreamDecoder
+    from msk144cudecoder_tpu_torch.runtime.decoder import to_host
     from msk144cudecoder_tpu_torch.tools import run_hwtests as hw
     from msk144cudecoder_tpu_torch.tools import scan_compare
 
@@ -507,6 +524,7 @@ def main() -> int:
     for name, cfg in (("default", DecoderConfig()), ("deep", hw.DEEP),
                       ("deep full demod", hw.DEEP.replace(survivor_prefilter=0))):
         pipe = pipeline.DecodePipeline(cfg).to(dev)
+        graphed = graphs.GraphedPipeline(pipe)
         for nb in (1, 64):
             raws = np.stack([demo_windows[i % len(demo_windows)] for i in range(nb)])
             raw = torch.from_numpy(raws).to(dev)
@@ -516,10 +534,32 @@ def main() -> int:
                 f"{HOP_MS * nb / ms:.1f}x real time, {C.HOP_LEN * nb / ms * 1e3:.4g} "
                 f"samples/s; stages (median ms/call) "
                 + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()) + f"  ({card})")
-            wall, busy, n_ops, top = profile_passes(pipe, raw, passes=20 if nb == 1 else 5)
+            passes = 20 if nb == 1 else 5
+            wall, busy, n_ops, top, _ = profile_passes(pipe, raw, passes)
             log(f"[profile] {name} B={nb}: wall {wall:.4f} ms/pass, device {busy:.4f} ms/pass "
                 f"({n_ops:.0f} device ops/pass), busy share {busy / wall:.4f}; largest: "
                 + ", ".join(f"{k} {v:.4f}" for k, v in top) + f"  ({card})")
+            # the same passes through the graph: in turns against eager, then
+            # profiled; the replayed trace names the path's kernels
+            graphed(raw)  # the capture
+            turns = {"eager": [], "graph": []}
+            for kind in ("eager", "graph", "graph", "eager"):
+                fn = pipe if kind == "eager" else graphed
+                turns[kind].append(cuda_time(lambda: fn(raw), reps=10 if nb == 1 else 3) / nb)
+            wall, busy, n_ops, top, names = profile_passes(graphed, raw, passes)
+            want = {"scan_kernel", "bp_kernel",
+                    "demod_kernel" if graphed.pipe.pre == 0 else "survivor_kernel"}
+            assert want <= names, (name, nb, names)
+            (g_rec,) = [g for k, g in graphed.graphs.items() if k[0][0] == nb]
+            log(f"[graph] {name} B={nb} in turns eager, graph, graph, eager: ms/window eager "
+                + ", ".join(f"{t:.4f}" for t in turns["eager"]) + "; graph "
+                + ", ".join(f"{t:.4f}" for t in turns["graph"]) + f"; replayed: wall "
+                f"{wall:.4f} ms/pass, device {busy:.4f} ms/pass ({n_ops:.0f} device ops/pass), "
+                f"busy share {busy / wall:.4f}; kernels in the trace {sorted(names)}; pool "
+                f"{g_rec.pool_bytes / 2 ** 20:.1f} MiB; largest: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in top) + f"  ({card})")
+        del pipe, graphed
+        torch.cuda.empty_cache()
     # the bf16 mode beside float32 at B=64, in turns (fp32, bf16, bf16, fp32)
     raws = np.stack([demo_windows[i % len(demo_windows)] for i in range(64)])
     raw = torch.from_numpy(raws).to(dev)
@@ -535,22 +575,32 @@ def main() -> int:
             + ", ".join(f"{t:.4f}" for t in turns[False]) + "; bf16 "
             + ", ".join(f"{t:.4f}" for t in turns[True]) + "; bf16 stages (median ms/call) "
             + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()) + f"  ({card})")
-        wall, busy, n_ops, top = profile_passes(pipes[True], raw, passes=5)
+        wall, busy, n_ops, top, _ = profile_passes(pipes[True], raw, passes=5)
         log(f"[profile bf16] {name} B=64: wall {wall:.4f} ms/pass, device {busy:.4f} ms/pass "
             f"({n_ops:.0f} device ops/pass), busy share {busy / wall:.4f}; largest: "
             + ", ".join(f"{k} {v:.4f}" for k, v in top) + f"  ({card})")
+    # the B=1 decode_block latency through the graph, in turns against its
+    # eager counterpart (the same steps with the eager pipeline's pass)
     dec1 = StreamDecoder(DecoderConfig(), dev)
-    lats = []
+
+    def eager_block(w):
+        raw1 = torch.from_numpy(np.ascontiguousarray(w[None, :])).to(dev)
+        return dec1._postprocess_one(to_host(dec1.pipeline(raw1)), 0)
+
     with contextlib.redirect_stderr(io.StringIO()):
         for w in demo_windows[:3]:
             dec1.decode_block(w)
-        for w in demo_windows:
-            t0 = time.perf_counter()
-            dec1.decode_block(w)
-            lats.append((time.perf_counter() - t0) * 1e3)
-    log(f"[time] default B=1 decode_block latency (host clock, incl. unpack), "
-        f"{len(lats)} windows: median {np.median(lats):.3f} ms, max {max(lats):.3f} ms, "
-        f"of the {C.LOOP_SOFT_BUDGET_MS:g} ms loop budget  ({card})")
+            eager_block(w)
+        for kind in ("eager", "graph", "graph", "eager"):
+            block = eager_block if kind == "eager" else dec1.decode_block
+            lats = []
+            for w in demo_windows:
+                t0 = time.perf_counter()
+                block(w)
+                lats.append((time.perf_counter() - t0) * 1e3)
+            log(f"[time] default B=1 decode_block latency, {kind} (host clock, incl. unpack), "
+                f"{len(lats)} windows: median {np.median(lats):.3f} ms, max {max(lats):.3f} ms, "
+                f"of the {C.LOOP_SOFT_BUDGET_MS:g} ms loop budget  ({card})")
 
     phase_done(6)
     phase7_throughput_cli(paths, cli_out, demo, demo_windows, card)
@@ -559,6 +609,8 @@ def main() -> int:
     phase_done(8)
     phase9_inputs()
     phase_done(9)
+    phase10_graphs(demo_windows, card)
+    phase_done(10)
 
     print(json.dumps({"kernels": [{**{k: r[k] for k in (
         "name", "route", "source", "replaces", "launches", "launches_per_pass", "max_abs_err",
@@ -699,7 +751,7 @@ def phase8_sharding(demo_windows, card) -> None:
     from msk144cudecoder_tpu_torch import constants as C
     from msk144cudecoder_tpu_torch import stimulus
     from msk144cudecoder_tpu_torch.config import DecoderConfig
-    from msk144cudecoder_tpu_torch.ops import kernels, pipeline
+    from msk144cudecoder_tpu_torch.ops import graphs, kernels, pipeline
     from msk144cudecoder_tpu_torch.parallel import MeshDecoder, make_mesh
     from msk144cudecoder_tpu_torch.parallel import cli as parallel_cli
     from msk144cudecoder_tpu_torch.runtime.decoder import to_host
@@ -718,7 +770,7 @@ def phase8_sharding(demo_windows, card) -> None:
     # pipeline, both with the fetch to the host (host clock)
     raw = np.stack([demo_windows[i % len(demo_windows)] for i in range(64)])
     md = MeshDecoder(DecoderConfig(), make_mesh(1, 4, [dev] * 4))
-    pipe = pipeline.DecodePipeline(DecoderConfig()).to(dev)
+    graphed = graphs.GraphedPipeline(pipeline.DecodePipeline(DecoderConfig()).to(dev))
     raw_dev = torch.from_numpy(raw)
 
     def host_ms(fn, reps=5):
@@ -730,9 +782,9 @@ def phase8_sharding(demo_windows, card) -> None:
         return (time.perf_counter() - t0) * 1e3 / reps
 
     for _ in range(2):  # in turns: unsharded, mesh, mesh, unsharded
-        ms_one = host_ms(lambda: to_host(pipe(raw_dev.to(dev))))
+        ms_one = host_ms(lambda: to_host(graphed.run(raw_dev.to(dev))))
         ms_mesh = host_ms(lambda: md.decode(raw))
-        log(f"[mesh time] default B=64, with the fetch: unsharded {ms_one / 64:.4f} ms/window, "
+        log(f"[mesh time] default B=64, with the fetch, graphs: unsharded {ms_one / 64:.4f} ms/window, "
             f"MeshDecoder (1, 4) on one card {ms_mesh / 64:.4f} ms/window  ({card})")
 
     # two processes on one card, joined by gloo
@@ -802,10 +854,50 @@ def phase9_inputs() -> None:
             f"{r['in_process']}, launches {r['launches']}")
 
 
+def phase10_graphs(demo_windows, card) -> None:
+    """The graphs against the eager pipeline, bit for bit, per config,
+    precision and B (the battery's graph_parity); the pools; --fast-math."""
+    import torch
+
+    from msk144cudecoder_tpu_torch.config import DecoderConfig
+    from msk144cudecoder_tpu_torch.parallel.sharding import stream_to_windows
+    from msk144cudecoder_tpu_torch.tools import run_hwtests as hw
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(17)
+    iq_windows = stream_to_windows(hw.iq_stimulus(), 2)
+    cases = (("default", DecoderConfig(), demo_windows), ("deep", hw.DEEP, demo_windows),
+             ("deep full demod", hw.DEEP.replace(survivor_prefilter=0), demo_windows),
+             ("iq", DecoderConfig.create(read_mode=2), iq_windows),
+             ("analytic_method=1", DecoderConfig(analytic_method=1), demo_windows))
+    pools = {}
+    for name, cfg, windows in cases:
+        for fast in (False, True):
+            for nb in (1, 64):
+                rec, _ = hw.graph_parity(cfg.replace(fast_math=fast),
+                                         hw.graph_inputs(windows, nb, rng), dev)
+                tag = f"{name}{' bf16' if fast else ''} B={nb}"
+                pools[tag] = rec["pool_mib"]
+                log(f"[graphs] {tag}: capture call and {rec['replays']} replays equal to the "
+                    f"eager forward bit for bit in every field, distinct buffers "
+                    f"{rec['distinct_buffers']}, {rec['found']} rows found; launches per replay "
+                    f"{ {k: n for k, n in rec['launches_per_replay'].items() if n} } = one eager "
+                    f"pass's; pool {rec['pool_mib']:.1f} MiB; first call (an eager pass and the "
+                    f"capture) {rec['first_call_ms']:.1f} ms  ({card})")
+                torch.cuda.empty_cache()
+    worst = max(pools, key=pools.get)
+    log(f"[graphs] largest pool: {worst} {pools[worst]:.1f} MiB; the CLI at --pipeline-depth=4 "
+        f"holds one graph per worker: {4 * pools[worst] / 1024:.2f} GiB for that config")
+    rec = hw.fast_math_cli()
+    log(f"[graphs] CLI --fast-math on the demo: {rec['lines']} lines, messages {rec['messages']} "
+        f"= the fp32 run's {rec['fp32_messages']}; bf16 banner {rec['banner']}")
+
+
 def profile_passes(pipe, raw, passes: int):
     """(wall ms per pass by the host clock without the profiler, device ms
     per pass summed over the CUDA entries of a torch.profiler trace, device
-    ops per pass, the four largest entries as (name, ms per pass))."""
+    ops per pass, the four largest entries as (name, ms per pass), the
+    KERNEL_NAMES the trace names)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -826,7 +918,8 @@ def profile_passes(pipe, raw, passes: int):
     entries.sort(key=lambda e: -e[1])
     top = [(re.sub(r"\(.*", "", k.replace("(anonymous namespace)::", "")
                    .replace("void ", ""))[:48], v) for k, v, _ in entries[:4]]
-    return wall, sum(e[1] for e in entries), sum(e[2] for e in entries), top
+    names = {k for k in KERNEL_NAMES if any(k in e[0] for e in entries)}
+    return wall, sum(e[1] for e in entries), sum(e[2] for e in entries), top, names
 
 
 def stage_split(pipe, raw, reps: int) -> dict:

@@ -7,12 +7,16 @@ before the previous one is post-processed, and the throughput mode
 (`--window-batch > 1`), where up to `--pipeline-depth` batches decode at
 once on a worker pool (each on its own CUDA stream on a card) while
 post-processing stays in stream order. The native C++ framer reads stdin
-when it can be built, the numpy one otherwise. The port differs in two
-ways: `--device` (default cuda) replaces `--platform`, and the CLI decodes
-in float32 (`Precision: fp32`), the JAX package's `--exact-math`: the port's
-bf16 mode is reached through DecoderConfig(fast_math=True) in Python, and
-the banner names whichever the configuration holds. `--profile-dir` writes
-a torch.profiler trace.
+when it can be built, the numpy one otherwise. On a card both modes replay
+a CUDA graph of the pipeline per pass (runtime.StreamDecoder; the throughput
+mode's tail batch is padded to the full batch, so one graph per worker
+serves the whole run). The port differs in two ways: `--device` (default
+cuda) replaces `--platform`, and the CLI decodes in float32 by default
+(`Precision: fp32`, the JAX package's `--exact-math`, still accepted);
+`--fast-math` selects the bf16 mode (bf16 inputs, float32 accumulation: the
+kernels' bf16 instantiations, DecoderConfig(fast_math=True)), the JAX CLI's
+default. The banner names the mode. `--profile-dir` writes a torch.profiler
+trace.
 """
 
 from __future__ import annotations
@@ -72,9 +76,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "concurrently, each on its own CUDA stream, while "
                         "post-processing stays in stream order; 1 = fully "
                         "synchronous (default 4)")
-    p.add_argument("--exact-math", action="store_true",
-                   help="compute in fp32: the JAX CLI's exact mode and the "
-                        "port's CLI default, so accepted for compatibility")
+    precision = p.add_mutually_exclusive_group()
+    precision.add_argument("--fast-math", action="store_true",
+                           help="decode in the bf16 mode: bf16 inputs, f32 "
+                                "accumulation (the kernels' bf16 "
+                                "instantiations); the default is fp32")
+    precision.add_argument("--exact-math", action="store_true",
+                           help="compute in fp32: the JAX CLI's exact mode and "
+                                "the port's CLI default, so accepted for "
+                                "compatibility")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to decode on: cuda (default), cuda:N "
                         "or cpu (the kernels' plain torch versions)")
@@ -97,7 +107,7 @@ def config_from_args(args: argparse.Namespace) -> DecoderConfig:
         candidates_per_pattern=args.candidates_per_pattern,
         survivor_prefilter=args.survivor_prefilter,
         window_batch=args.window_batch,
-        fast_math=False,  # --exact-math or not: the CLI decodes in fp32
+        fast_math=args.fast_math,
         scan_decimation=args.scan_decimation,
     )
     if args.center_frequency is not None:

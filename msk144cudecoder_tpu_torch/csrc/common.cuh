@@ -3,6 +3,7 @@
 // y = imag), the layout of torch.complex64.
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -465,6 +466,27 @@ __device__ __forceinline__ void warp_reject(float* __restrict__ sb_out,
   const int lane = threadIdx.x & 31;
   reinterpret_cast<float4*>(sb_out)[lane] = make_float4(0.f, 0.f, 0.f, 0.f);
   if (lane == 0) *nbad_out = 17;
+}
+
+// A kernel's launch attributes (a shared-memory opt-in, a carve-out), set
+// once per device: `set` calls cudaFuncSetAttribute the first time a device
+// launches the kernel and never again, so that no later launch, and none
+// captured into a CUDA graph, sets them. `done` is the kernel's own (a bit
+// per device). An error is returned as the launch's, not left behind for
+// the next launch's check, and `set` runs again at the next launch.
+template <class Set>
+inline cudaError_t opt_in_once(std::atomic<unsigned long long>& done, Set set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (err != cudaSuccess || (done.load() & bit) != 0) return err;
+  err = set();
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  done.fetch_or(bit);
+  return cudaSuccess;
 }
 
 }  // namespace msk

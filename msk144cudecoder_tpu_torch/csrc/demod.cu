@@ -263,15 +263,20 @@ template <bool kFast>
 cudaError_t launch(const void* c, const void* W, const void* pos, const void* sync_conj,
                    const void* pp12, const void* masks, const void* sync_pm, void* sb_out,
                    void* nbad_out, int n_win, int F, int P, int K, cudaStream_t stream) {
-  // the most shared memory per SM, so that three blocks (kFast: one) fit
-  cudaError_t err = cudaFuncSetAttribute(demod_kernel<kFast>,
+  // once per device: the most shared memory per SM, so that three blocks
+  // (kFast: one) fit, and the opt-in for the largest block (kFast: depth 8)
+  static std::atomic<unsigned long long> done{0};
+  const cudaError_t err = opt_in_once(done, [] {
+    cudaError_t e = cudaFuncSetAttribute(demod_kernel<kFast>,
                                          cudaFuncAttributePreferredSharedMemoryCarveout,
                                          cudaSharedmemCarveoutMaxShared);
-  const int smem = kFast ? fast_smem_bytes(P) : kSmemBytes;
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(demod_kernel<kFast>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(demod_kernel<kFast>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kFast ? fast_smem_bytes(8) : kSmemBytes);
+    return e;
+  });
   if (err != cudaSuccess) return err;
+  const int smem = kFast ? fast_smem_bytes(P) : kSmemBytes;
   demod_kernel<kFast><<<n_win * F, block_threads(kFast), smem, stream>>>(
       static_cast<const float2*>(c), static_cast<const float2*>(W),
       static_cast<const int*>(pos), static_cast<const float2*>(sync_conj),

@@ -87,8 +87,6 @@
 // for near ties and the patterns that tie by construction
 // (tools/run_hwtests.py check_scan).
 
-#include <atomic>
-
 #include "common.cuh"
 
 namespace {
@@ -559,27 +557,20 @@ struct ScanArgs {
 
 // The kFast launch takes more than the 48 KB of dynamic shared memory a
 // launch may use without opting in: it raises the kernel's limit once per
-// device and template instance; an error there is returned as the launch's.
+// device and template instance (opt_in_once).
 template <int DEC, int FT>
 cudaError_t opt_in_fast() {
-  static std::atomic<unsigned long long> opted_in{0};  // a bit per device
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (err != cudaSuccess || (opted_in.load() & bit) != 0) return err;
-  err = cudaFuncSetAttribute(scan_fast_kernel<DEC, FT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             fast_smem_bytes(FT, DEC));
-  if (err == cudaSuccess)  // the SM's largest carve-out: three blocks of the widest tile
-    err = cudaFuncSetAttribute(scan_fast_kernel<DEC, FT>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // not left behind for the next launch's check
+  static std::atomic<unsigned long long> done{0};
+  return opt_in_once(done, [] {
+    cudaError_t err = cudaFuncSetAttribute(scan_fast_kernel<DEC, FT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           fast_smem_bytes(FT, DEC));
+    if (err == cudaSuccess)  // the SM's largest carve-out: three blocks of the widest tile
+      err = cudaFuncSetAttribute(scan_fast_kernel<DEC, FT>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
     return err;
-  }
-  opted_in.fetch_or(bit);
-  return cudaSuccess;
+  });
 }
 
 template <int DEC, int FT, bool kFast>

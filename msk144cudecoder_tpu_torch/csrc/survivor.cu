@@ -319,8 +319,13 @@ cudaError_t launch(const void* c, const void* W, const void* chi, const void* po
                    cudaStream_t stream) {
   const int warps = rows_per_block < kMaxWarps ? rows_per_block : kMaxWarps;
   const int smem = smem_bytes(kFast, warps);
-  cudaError_t err = cudaFuncSetAttribute(survivor_kernel<kFast>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // once per device, the opt-in for the widest block (8 warps)
+  static std::atomic<unsigned long long> done{0};
+  const cudaError_t err = opt_in_once(done, [] {
+    return cudaFuncSetAttribute(survivor_kernel<kFast>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                smem_bytes(kFast, kMaxWarps));
+  });
   if (err != cudaSuccess) return err;
   const dim3 grid((S + rows_per_block - 1) / rows_per_block, n_win);
   survivor_kernel<kFast><<<grid, 32 * warps, smem, stream>>>(

@@ -16,7 +16,10 @@ the bf16 fast_math policy (ops/precision.py), chosen by the entry point's
 survivor.demod_survivors_cuda, demod.demod_candidates_cuda,
 ldpc.bp_decode_cuda), `launches` for float32 and `launches_fast` for fast;
 count_launch adds to one, launch_counts / reset_launch_counts read and clear
-all eight (the fast ones under "<kernel>_fast").
+all eight (the fast ones under "<kernel>_fast"). A CUDA graph capture
+(ops/graphs.py) launches nothing: under `recording()` the wrappers' counts
+go to the capture's tally instead, and each replay adds the tally
+(add_launches), so that the counts stay the kernels' launches.
 
 Several threads may decode at once (the CLI's throughput mode runs its
 device calls on a worker pool): the first call builds the library under a
@@ -26,6 +29,7 @@ launch counts change under a lock.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -64,6 +68,7 @@ SIGNATURES = {
 _lib = None  # the loaded library, once built
 _lib_lock = threading.Lock()  # one build and load per process
 _count_lock = threading.Lock()
+_recording = threading.local()  # .tally: this thread's capture tally, or None
 last_build_seconds = None  # wall time of this process's build, if any
 
 
@@ -219,12 +224,35 @@ def check_tensors(op: str, **specs) -> None:
 
 def count_launch(wrapper, fast: bool = False) -> None:
     """One more launch of `wrapper`'s kernel, its fast instantiation if fast
-    (called right after the launch succeeded)."""
+    (called right after the launch succeeded). Inside `recording()` the
+    launch was captured into a graph, not made: it goes to the tally."""
+    tally = getattr(_recording, "tally", None)
+    if tally is not None:
+        tally[wrapper, fast] = tally.get((wrapper, fast), 0) + 1
+        return
+    add_launches({(wrapper, fast): 1})
+
+
+def add_launches(tally: dict) -> None:
+    """Add a tally {(wrapper, fast): launches} to the counts: a graph's
+    replay launches what its capture recorded."""
     with _count_lock:
-        if fast:
-            wrapper.launches_fast += 1
-        else:
-            wrapper.launches += 1
+        for (wrapper, fast), n in tally.items():
+            if fast:
+                wrapper.launches_fast += n
+            else:
+                wrapper.launches += n
+
+
+@contextlib.contextmanager
+def recording():
+    """This thread's count_launch calls go to the yielded tally instead of
+    the counts (a graph capture, which launches nothing)."""
+    _recording.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _recording.tally = None
 
 
 def _wrappers() -> dict:

@@ -59,10 +59,12 @@ class WindowDecodeResult(NamedTuple):
 
 
 def pack_message_bits(bits77: torch.Tensor) -> torch.Tensor:
-    """(..., 77) {0,1} values -> (..., 10) uint8, np.packbits bit order."""
+    """(..., 77) {0,1} values -> (..., 10) uint8, np.packbits bit order. The
+    bit weights are made on the device (no host copy: a CUDA graph captures
+    this)."""
     b = torch.nn.functional.pad(bits77.to(torch.int32), (0, 3))
     b = b.reshape(b.shape[:-1] + (10, 8))
-    w = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32, device=b.device)
+    w = 2 ** torch.arange(7, -1, -1, dtype=torch.int32, device=b.device)
     return (b * w).sum(dim=-1).to(torch.uint8)
 
 
@@ -412,8 +414,9 @@ class DecodePipeline(nn.Module):
 def decode_raw(raw, cfg: DecoderConfig, device=None) -> WindowDecodeResult:
     """Batch of raw windows (B, raw_len) -> batched results on `device`
     (default: the card; without one this raises unless device is "cpu").
-    Builds the pipeline on each call; a stream keeps one
-    (runtime.StreamDecoder)."""
+    Builds the pipeline on each call, so it runs eagerly: a CUDA graph
+    (ops/graphs.py) pays off only over many passes of one pipeline, as a
+    stream makes them (runtime.StreamDecoder keeps one, and its graphs)."""
     if not isinstance(raw, torch.Tensor):
         raw = torch.from_numpy(np.asarray(raw))
     device = kernels.resolve_device(device)

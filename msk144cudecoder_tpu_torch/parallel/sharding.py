@@ -9,13 +9,14 @@ Port of msk144cudecoder_tpu/parallel/sharding.py. Axes:
           the frequency tables, demodulates and BP-decodes its own top K
           survivors, and the survivor lists concatenate on output.
 
-The JAX package runs the shards as one shard_map program; here each
-(time, freq) shard is a DecodePipeline on its own device. `decode` launches
-every shard before it fetches any, so shards on different cards overlap,
-then assembles the result on the host as shard_map's out_specs do:
-candidate indices shifted by the shard's offset, num_survivors summed and
-shard_survivors the maximum over the freq axis, the K axis concatenated in
-shard order. A device may appear in several cells of the grid, so that the
+The JAX package runs the shards as one jitted shard_map program; here each
+(time, freq) shard is a DecodePipeline on its own device, which on a card
+replays its own CUDA graph there (ops/graphs.py; on the CPU it runs
+eagerly). `decode` launches every shard before it fetches any, so shards on
+different cards overlap, then assembles the result on the host as
+shard_map's out_specs do: candidate indices shifted by the shard's offset,
+num_survivors summed and shard_survivors the maximum over the freq axis,
+the K axis concatenated in shard order. A device may appear in several cells of the grid, so that the
 CPU or one card can hold several shards.
 """
 
@@ -28,7 +29,7 @@ import torch
 
 from .. import constants as C
 from ..config import DecoderConfig
-from ..ops import kernels, pipeline
+from ..ops import graphs, kernels, pipeline
 from ..ops.tables import padded_freqs
 from ..runtime.decoder import to_host
 
@@ -70,7 +71,8 @@ class MeshDecoder:
 
     One DecodePipeline per (device, freq shard), holding that shard's slice
     of the padded grid's tables and its channel mask (the pad channels past
-    the right boundary never reach a result)."""
+    the right boundary never reach a result), run through its graphs on a
+    card."""
 
     def __init__(self, cfg: DecoderConfig, mesh: np.ndarray):
         self.cfg = cfg
@@ -81,16 +83,17 @@ class MeshDecoder:
         self.local_cand = self.local_f * cfg.scan_depth * cfg.candidates_per_pattern
         n_real = cfg.num_freqs  # grid channels beyond this are sharding pad
         built = {}
-        self._pipes = np.empty(mesh.shape, dtype=object)
+        self._runs = np.empty(mesh.shape, dtype=object)  # a pass of each shard
         for (t, j), dev in np.ndenumerate(mesh):
             key = (str(dev), j)
             if key not in built:
                 lo = j * self.local_f
                 chan_valid = np.arange(lo, lo + self.local_f) < n_real
-                built[key] = pipeline.DecodePipeline(
+                pipe = pipeline.DecodePipeline(
                     cfg, freqs=self.freqs[lo:lo + self.local_f],
                     chan_valid=chan_valid).to(dev)
-            self._pipes[t, j] = built[key]
+                built[key] = graphs.GraphedPipeline(pipe).run if dev.type == "cuda" else pipe
+            self._runs[t, j] = built[key]
         for dev in {d for d in mesh.flat if d.type == "cuda"}:
             torch.cuda.synchronize(dev)
 
@@ -104,8 +107,8 @@ class MeshDecoder:
             raise ValueError(f"batch of {raw.shape[0]} windows does not split over "
                              f"{self.n_time} time rows")
         rows = raw.shape[0] // self.n_time
-        launched = [[self._pipes[t, j](torch.from_numpy(raw[t * rows:(t + 1) * rows])
-                                       .to(self.mesh[t, j]))
+        launched = [[self._runs[t, j](torch.from_numpy(raw[t * rows:(t + 1) * rows])
+                                      .to(self.mesh[t, j]))
                      for j in range(self.n_freq)] for t in range(self.n_time)]
         fetched = [[to_host(r) for r in row] for row in launched]
         return pipeline.WindowDecodeResult(*(

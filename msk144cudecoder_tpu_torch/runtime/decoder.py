@@ -7,13 +7,17 @@ through the ResultFilter. `submit()` enqueues the device work (PyTorch's
 CUDA calls return before the device finishes) and `collect()` copies the
 oldest result to the host and post-processes it.
 
+On a card every pass (`submit`, `decode_block`, `decode_many`,
+`decode_to_host`) replays a CUDA graph of the pipeline (ops/graphs.py, the
+counterpart of the JAX package's jax.jit), one per batch shape and CUDA
+stream, captured at its first pass; on the CPU the pipeline runs eagerly.
 `decode_to_host` may be called from several threads at once (the CLI's
 throughput mode): on a card each call runs on its thread's own CUDA stream,
-from a pinned host copy of the batch to pinned host copies of the results,
-and returns after that stream's synchronize. Post-processing keeps stream
-state (SNR, dedup) and runs on one thread, in stream order. The
-configuration's precision (DecoderConfig.fast_math) reaches the kernels, or
-their plain versions, through the pipeline.
+with its own graph, from a pinned host copy of the batch to a pinned host
+copy of the results, and returns after that stream's synchronize.
+Post-processing keeps stream state (SNR, dedup) and runs on one thread, in
+stream order. The configuration's precision (DecoderConfig.fast_math)
+reaches the kernels, or their plain versions, through the pipeline.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import torch
 
 from .. import constants as C
 from ..config import DecoderConfig
-from ..ops import kernels, pipeline
+from ..ops import graphs, kernels, pipeline
 from ..protocol import msg77
 from .metrics import ScopedMetric
 from .result_filter import ResultFilter, ResultItem
@@ -59,6 +63,7 @@ class StreamDecoder:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self._pipeline: Optional[pipeline.DecodePipeline] = None
+        self._graphed: Optional[graphs.GraphedPipeline] = None  # on a card
         self._pipeline_lock = threading.Lock()
         self._streams = threading.local()  # each worker thread's CUDA stream
         self.survivor_capacity = (cfg.max_survivors if survivor_capacity is None
@@ -77,7 +82,7 @@ class StreamDecoder:
         self.hashes = msg77.CallsignHashTable()
         self._decode_cache: Dict[bytes, Tuple[bool, str]] = {}
         self._freqs = cfg.freqs if freqs is None else freqs
-        self._pending: deque = deque()  # in-flight WindowDecodeResults (FIFO)
+        self._pending: deque = deque()  # in-flight results of _run (FIFO)
         # survivor-overflow warning aggregation (see _warn_overflow): global
         # and per-shard overflows tracked separately so the rate-limited
         # aggregate cites the right bound
@@ -99,11 +104,24 @@ class StreamDecoder:
                     pipe = pipeline.DecodePipeline(self.cfg).to(self.device)
                     if self.device.type == "cuda":
                         torch.cuda.synchronize(self.device)
+                        self._graphed = graphs.GraphedPipeline(pipe)
                     self._pipeline = pipe
         return self._pipeline
 
-    def _run(self, raw_batch) -> pipeline.WindowDecodeResult:
+    @property
+    def graphed(self) -> graphs.GraphedPipeline:
+        """The pipeline's CUDA graphs (a card only: on the CPU this raises)."""
+        pipe = self.pipeline  # built at first use, with its graphs on a card
+        if self._graphed is None:
+            raise RuntimeError(f"StreamDecoder on {pipe.B.device} runs eagerly: no CUDA graphs")
+        return self._graphed
+
+    def _run(self, raw_batch):
+        """One pass on the current stream: a PackedResult of a graph replay
+        on a card, a WindowDecodeResult on the CPU."""
         raw = torch.from_numpy(np.ascontiguousarray(raw_batch)).to(self.device)
+        if self.device.type == "cuda":
+            return self.graphed.run(raw)
         return self.pipeline(raw)
 
     def submit(self, raw_window: np.ndarray) -> None:
@@ -147,18 +165,15 @@ class StreamDecoder:
         stream has finished."""
         if self.device.type != "cuda":
             return to_host(self._run(np.asarray(raw_batch)))
-        pipe = self.pipeline
+        graphed = self.graphed
         stream = getattr(self._streams, "stream", None)
         if stream is None:
             stream = self._streams.stream = torch.cuda.Stream(self.device)
         host_raw = torch.from_numpy(np.ascontiguousarray(raw_batch)).pin_memory()
         with torch.cuda.stream(stream):
-            res = pipe(host_raw.to(self.device, non_blocking=True))
-            out = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in res]
-            for h, x in zip(out, res):
-                h.copy_(x, non_blocking=True)
+            out = graphed.run(host_raw.to(self.device, non_blocking=True), host=True)
         stream.synchronize()
-        return type(res)(*(h.numpy() for h in out))
+        return out.numpy()
 
     def postprocess_batch(self, res: pipeline.WindowDecodeResult,
                           n_valid: int) -> List[List[ResultItem]]:
@@ -261,7 +276,10 @@ class StreamDecoder:
             return self.result_filter.block_result()
 
 
-def to_host(res: pipeline.WindowDecodeResult) -> pipeline.WindowDecodeResult:
+def to_host(res) -> pipeline.WindowDecodeResult:
     """Every leaf of a WindowDecodeResult as a numpy array (one .cpu() per
-    leaf; the first waits for the device)."""
+    leaf; the first waits for the device), or of a graph's PackedResult (one
+    copy)."""
+    if isinstance(res, graphs.PackedResult):
+        return res.numpy()
     return type(res)(*(x.cpu().numpy() for x in res))

@@ -21,7 +21,8 @@ error, the remaining steps still run, and any failed step fails the battery
                overflow warning and the same per-message result; the
                prefilter path at K = 256 equal to the CPU run
   cli          the demo through the CLI with the prefilter on and off,
-               window by window and pipelined: lines equal to --device=cpu's
+               window by window and pipelined: lines equal to --device=cpu's;
+               with --fast-math (the bf16 mode) the messages of the fp32 run
   mesh         MeshDecoder on cuda:0 x 4 at (1, 4) and (2, 2): decode
                summaries equal to the CPU's
   inputs       IQ input (--read-mode=2) and the FFT Hilbert transform
@@ -42,6 +43,14 @@ error, the remaining steps still run, and any failed step fails the battery
                same decodes; in fast mode, the demo's three messages with a
                summary equal to the CPU's fast plain path, and the -4 dB
                deep-scan decode; a fast pass launches only the fast kernels
+  graph        the CUDA graphs (ops/graphs.py) against the eager pipeline on
+               the demo and the busy band, in float32 and bf16, at B = 1 and
+               64: every field of two consecutive replays on different
+               inputs equal bit for bit to the eager forward's, the replays'
+               buffers distinct, and a replay's launches those of one eager
+               pass; the throughput CLI with --fast-math (a graph per
+               worker) prints the lines of the window-by-window --fast-math
+               run
 
 It writes tests/data/hwtests_gpu.json (the card's name and power limit from
 nvidia-smi, the torch, CUDA and nvcc versions, every step, the provenance
@@ -75,7 +84,7 @@ import torch
 from .. import constants as C
 from .. import stimulus
 from ..config import DecoderConfig
-from ..ops import demod, kernels, ldpc, pipeline, scan, survivor
+from ..ops import demod, graphs, kernels, ldpc, pipeline, scan, survivor
 from ..parallel import MeshDecoder, make_mesh
 from ..parallel.sharding import stream_to_windows
 from ..protocol import crc as crc_mod
@@ -93,7 +102,7 @@ DEMO_MESSAGES = {"CQ K1ABC FN42", "K1ABC W9XYZ EN37", "W9XYZ K1ABC RR73"}
 DEEP = DecoderConfig(search_width=500.0, search_step=1.0, scan_depth=6, nbadsync_threshold=3)
 BUSY = DecoderConfig(search_width=200.0, search_step=2.0, scan_depth=6, nbadsync_threshold=3,
                      max_survivors=256)
-GPU_TESTS_MIN = 53
+GPU_TESTS_MIN = 66
 NEAR_FAST = 2.0 ** -8  # one bf16 ulp at 1: a fast sync softbit this near 0 may flip
 MESH_SHAPES = ((1, 4), (2, 2))
 # IQ input: two messages at offsets around the 0 Hz centre, inside the
@@ -502,6 +511,11 @@ def mesh_cases():
                 base.replace(survivor_prefilter=pre), windows
 
 
+def iq_stimulus() -> np.ndarray:
+    """Interleaved int8 IQ of IQ_MESSAGES, 12 frames (3 windows)."""
+    return stimulus.synthesize_iq_int8(IQ_MESSAGES, 12, snr_db=8.0, rng=np.random.default_rng(21))
+
+
 def input_paths(rec: dict, dev, tmp: pathlib.Path) -> None:
     """IQ input (read mode 2: two messages around 0 Hz) and the FFT Hilbert
     transform (analytic method 1, on the demo) through the CLI on the card
@@ -510,7 +524,7 @@ def input_paths(rec: dict, dev, tmp: pathlib.Path) -> None:
     this process through StreamDecoder, with the launch counts set to 0
     just before it and read just after: the scan, survivor and BP kernels
     launch."""
-    iq = stimulus.synthesize_iq_int8(IQ_MESSAGES, 12, snr_db=8.0, rng=np.random.default_rng(21))
+    iq = iq_stimulus()
     iq_path = tmp / "iq.raw"
     iq_path.write_bytes(iq.tobytes())
     cases = (("iq", iq_path, ("--read-mode=2",), {m for m, _ in IQ_MESSAGES},
@@ -569,6 +583,21 @@ def step_cli(rec: dict) -> None:
     for tag, flags in (("prefilter_auto", ()), ("prefilter_0", ("--survivor-prefilter=0",))):
         demo_cli(rec.setdefault(tag, {}), *flags)
         log(f"[cli] {tag}: {rec[tag]}")
+    rec["fast_math"] = fast_math_cli()
+    log(f"[cli] fast_math: {rec['fast_math']}")
+
+
+def fast_math_cli() -> dict:
+    """The demo through the CLI on the card, window by window, with
+    --fast-math: the bf16 banner, and the messages of the fp32 run."""
+    out, err = run_cli(DEVICE, DEMO, "--fast-math")
+    out32, _ = run_cli(DEVICE, DEMO)
+    r = dict(lines=len(strip_date(out)) - 1, messages=sorted(messages(out)),
+             fp32_messages=sorted(messages(out32)),
+             banner="Precision: bf16 inputs, f32 accumulation" in err)
+    assert r["banner"], err[-2000:]
+    assert messages(out) == messages(out32) == DEMO_MESSAGES, r
+    return r
 
 
 def step_mesh(rec: dict) -> None:
@@ -584,6 +613,68 @@ def step_inputs(rec: dict) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         input_paths(rec, torch.device(DEVICE), pathlib.Path(tmp))
     log(f"[inputs] {rec}")
+
+
+def graph_inputs(windows: np.ndarray, nb: int, rng) -> tuple:
+    """Two different (nb, raw_len) batches of the stream's windows on the
+    host: the windows in turn from window 2 (on the demo a ping), and from
+    window 10 with every fourth window noise."""
+    first = np.stack([windows[(i + 2) % len(windows)] for i in range(nb)])
+    second = np.stack([windows[(i + 10) % len(windows)] for i in range(nb)])
+    noise = rng.normal(0, 1000 if windows.dtype == np.int16 else 20, second[::4].shape)
+    second[::4] = np.clip(noise, np.iinfo(windows.dtype).min, np.iinfo(windows.dtype).max)
+    return first, second
+
+
+def graph_parity(cfg, batches, dev) -> tuple:
+    """A GraphedPipeline of cfg on dev against the eager DecodePipeline on
+    the same pipeline: the capture call on batches[0] (its result is an eager
+    pass), then replays on each batch in turn and on batches[0] again: every
+    field of every call equal bit for bit to the eager forward's on the same
+    input; two consecutive replays' results in distinct buffers; each
+    replay's launches (kernels.launch_counts, set to 0 just before) those of
+    one eager pass, of the path's kernels. Returns (statistics with the
+    graph's pool and the first call's host-clock ms, the GraphedPipeline)."""
+    pipe = pipeline.DecodePipeline(cfg).to(dev)
+    graphed = graphs.GraphedPipeline(pipe)
+    raws = [torch.from_numpy(b).to(dev) for b in batches]
+    kernels.reset_launch_counts()
+    eager = [pipe(r) for r in raws]
+    torch.cuda.synchronize()
+    eager_counts = {k: n // len(raws) for k, n in kernels.launch_counts().items()}
+    t0 = time.perf_counter()
+    got = [graphed.run(raws[0])]  # the first call: an eager pass and the capture
+    torch.cuda.synchronize()
+    first_call_ms = (time.perf_counter() - t0) * 1e3
+    replay_counts = []
+    for r in raws + raws[:1]:
+        kernels.reset_launch_counts()
+        got.append(graphed.run(r))
+        replay_counts.append(kernels.launch_counts())
+    torch.cuda.synchronize()
+    want = [eager[0]] + eager + eager[:1]
+    unequal = [(i, f) for i, (g, w) in enumerate(zip(got, want))
+               for f, x, y in zip(w._fields, g.unpack(), w) if not torch.equal(x, y)]
+    (g_rec,) = graphed.graphs.values()
+    rec = dict(calls=len(got), replays=len(got) - 1, unequal=unequal,
+               distinct_buffers=len({r.buf.data_ptr() for r in got}) == len(got),
+               launches_per_replay=replay_counts[0], eager_launches_per_pass=eager_counts,
+               pool_mib=g_rec.pool_bytes / 2 ** 20, first_call_ms=first_call_ms,
+               found=int(want[1].found.sum()))
+    assert not unequal, rec
+    assert rec["distinct_buffers"], rec
+    assert all(c == eager_counts for c in replay_counts), (replay_counts, eager_counts)
+    assert {k for k, n in eager_counts.items() if n} == path_kernels(cfg), rec
+    return rec, graphed
+
+
+def graph_cases():
+    """(name, config, the stream's windows) of the graph step: the demo and
+    the busy band, each in float32 and bf16."""
+    busy = stimulus.stream_windows(stimulus.busy_band_audio())
+    for name, cfg, windows in (("demo", DecoderConfig(), demo_windows()), ("busy", BUSY, busy)):
+        for fast in (False, True):
+            yield f"{name}{' bf16' if fast else ''}", cfg.replace(fast_math=fast), windows
 
 
 def allowed_differences(snr: float) -> int:
@@ -708,9 +799,27 @@ def step_precision(rec: dict) -> None:
     assert {r.message for r in deep} == {"CQ K1ABC FN42"}, rec["deep_weak"]
 
 
+def step_graph(rec: dict) -> None:
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(11)
+    for name, cfg, windows in graph_cases():
+        for nb in (1, 64):
+            rec[f"{name} B={nb}"], _ = graph_parity(cfg, graph_inputs(windows, nb, rng), dev)
+            torch.cuda.empty_cache()
+    out, err = run_cli(DEVICE, DEMO, "--fast-math", "--window-batch=8", "--pipeline-depth=4")
+    out1, _ = run_cli(DEVICE, DEMO, "--fast-math")
+    rec["cli_fast_math_throughput"] = dict(lines=len(strip_date(out)) - 1,
+                                           equal_to_window_by_window=strip_date(out) == strip_date(out1))
+    for name, r in rec.items():
+        log(f"[graph] {name}: {r}")
+    assert rec["cli_fast_math_throughput"]["equal_to_window_by_window"], (out, out1)
+    assert messages(out) == DEMO_MESSAGES and "Throughput:" in err, (out, err[-2000:])
+
+
 STEPS = (("gpu_tests", step_gpu_tests), ("kernels", step_kernels), ("busyband", step_busyband),
          ("cli", step_cli), ("mesh", step_mesh), ("inputs", step_inputs),
-         ("sensitivity", step_sensitivity), ("soak", step_soak), ("precision", step_precision))
+         ("sensitivity", step_sensitivity), ("soak", step_soak), ("precision", step_precision),
+         ("graph", step_graph))
 
 
 def main() -> int:

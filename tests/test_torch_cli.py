@@ -1,12 +1,12 @@
-"""The PyTorch port's host runtime and CLI on the CPU: output lines
-identical to the JAX CLI's on the demo capture (the prefilter on, and off:
-the full demod), the pipelined throughput mode (--window-batch with
---pipeline-depth) against the sequential mode and the JAX CLI,
---profile-dir, StreamDecoder's batching, its thread-safe decode_to_host and
-survivor-overflow warning ("at least" only with the prefilter on), the busy
-band on the full demod, the import guard (the port never imports jax or the
-JAX package), the kernel library's one build under concurrent first calls,
-and no hidden fallback from CUDA to the CPU."""
+"""The PyTorch port's host runtime and CLI on the CPU: the pipelined
+throughput mode (--window-batch with --pipeline-depth) against the
+sequential mode and the JAX CLI, --profile-dir, StreamDecoder's batching,
+its thread-safe decode_to_host and survivor-overflow warning ("at least"
+only with the prefilter on), the busy band on the full demod, the import
+guard (the port never imports jax or the JAX package), the kernel
+library's one build under concurrent first calls, and no hidden fallback
+from CUDA to the CPU. Its lines against the JAX CLI's on the demo are in
+tests/test_torch_cli_jax_lines.py and tests/test_torch_cli_jax_full_demod.py."""
 
 import json
 import os
@@ -53,31 +53,6 @@ def port_run():
     proc = run("msk144cudecoder_tpu_torch", "--device=cpu", *SMALL)
     assert proc.returncode == 0, proc.stderr
     return proc
-
-
-def test_cli_lines_match_jax_cli(port_run):
-    """The JAX CLI with the prefilter on takes the same path on the CPU (the
-    jnp survivor demod behind prefilter_select)."""
-    ref = run("msk144cudecoder_tpu", "--platform=cpu", "--survivor-prefilter=512", *SMALL)
-    assert ref.returncode == 0, ref.stderr
-    assert lines(port_run.stdout) == lines(ref.stdout)
-    msgs = {ln.split("msg='")[1].split("'")[0] for ln in port_run.stdout.splitlines()
-            if "msg='" in ln}
-    assert msgs == {"CQ K1ABC FN42", "K1ABC W9XYZ EN37", "W9XYZ K1ABC RR73"}
-    assert "Precision: fp32" in port_run.stderr and "Device: cpu" in port_run.stderr
-
-
-def test_full_demod_cli_lines_match_jax_cli_default():
-    """--survivor-prefilter=0 against the JAX CLI's default on the CPU, which
-    resolves the prefilter to off there (the jnp full demod)."""
-    ours = run("msk144cudecoder_tpu_torch", "--device=cpu", "--survivor-prefilter=0", *SMALL)
-    assert ours.returncode == 0, ours.stderr
-    ref = run("msk144cudecoder_tpu", "--platform=cpu", *SMALL)
-    assert ref.returncode == 0, ref.stderr
-    assert lines(ours.stdout) == lines(ref.stdout)
-    msgs = {ln.split("msg='")[1].split("'")[0] for ln in ours.stdout.splitlines()
-            if "msg='" in ln}
-    assert msgs == {"CQ K1ABC FN42", "K1ABC W9XYZ EN37", "W9XYZ K1ABC RR73"}
 
 
 def test_window_batch_mode_same_lines(port_run):

@@ -1,6 +1,7 @@
 """The PyTorch port's CUDA kernels against their plain torch versions on the
-card, decode_to_host from several threads on their own CUDA streams, and
-the frequency-sharded MeshDecoder on one card against its CPU run. Marked
+card, decode_to_host from several threads on their own CUDA streams, the
+frequency-sharded MeshDecoder on one card against its CPU run, and the CUDA
+graphs of the pipeline (ops/graphs.py) against its eager pass. Marked
 `gpu`: each test skips without a CUDA device (the CPU suite checks the
 plain versions against the JAX package instead). On a machine with a card
 and nvcc, and without jax (tests/conftest.py imports it):
@@ -395,3 +396,86 @@ def test_fast_pass_launches_only_fast_kernels(cuda, prefilter):
         dec.decode_to_host(demo)
         launched = {k for k, n in kernels.launch_counts().items() if n}
         assert launched == hw.path_kernels(cfg), (fast, launched)
+
+
+# ---- CUDA graphs (ops/graphs.py) ---------------------------------------------
+
+@pytest.mark.parametrize("n_win", [1, 64])
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("prefilter", [None, 0])
+def test_graph_equals_eager_bit_for_bit(cuda, prefilter, fast, n_win):
+    """The capture call and replays on two different inputs, in turn, equal
+    the eager forward bit for bit in every field, on the prefilter and the
+    full paths, in both precisions; each replay launches one eager pass's
+    kernels."""
+    cfg = DecoderConfig(survivor_prefilter=prefilter, fast_math=fast)
+    windows = stimulus.stream_windows(np.fromfile(DEMO, dtype=np.int16))
+    batches = hw.graph_inputs(windows, n_win, np.random.default_rng(3))
+    rec, graphed = hw.graph_parity(cfg, batches, cuda)
+    assert rec["replays"] == 3 and len(graphed.graphs) == 1
+    assert sum(rec["launches_per_replay"].values()) == 3
+
+
+def test_two_submits_in_flight_are_distinct(cuda):
+    """The window-by-window CLI submits window n+1 before it collects window
+    n: two in-flight results of one graph hold their own buffers and equal
+    the eager pipeline's."""
+    windows = stimulus.stream_windows(np.fromfile(DEMO, dtype=np.int16))
+    dec = StreamDecoder(DecoderConfig(), cuda)
+    dec.decode_block(windows[0])  # the capture
+    dec.submit(windows[2])
+    dec.submit(windows[10])
+    a, b = dec._pending
+    assert a.buf.data_ptr() != b.buf.data_ptr()
+    for w, res in ((windows[2], a), (windows[10], b)):
+        want = dec.pipeline(torch.from_numpy(w[None, :]).to(cuda))
+        for f, x, y in zip(want._fields, res.unpack(), want):
+            assert torch.equal(x, y), f
+    dec.collect()
+    dec.collect()
+    assert dec.in_flight == 0
+
+
+def test_decode_to_host_threads_replay_their_own_graphs(cuda):
+    """decode_to_host from four threads at the CLI's depth 4: each thread's
+    stream captures its own graph, and every batch's result equals the
+    sequential decode's."""
+    demo = stimulus.stream_windows(np.fromfile(DEMO, dtype=np.int16))
+    batches = [demo[i:i + 16] for i in (0, 3, 6, 9)]
+    dec = StreamDecoder(DecoderConfig(survivor_prefilter=0), cuda)
+    want = [dec.decode_to_host(b) for b in batches]
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        for _ in range(3):
+            got = list(pool.map(dec.decode_to_host, batches * 2))
+            for w, g in zip(want * 2, got):
+                for f in w._fields:
+                    np.testing.assert_array_equal(getattr(g, f), getattr(w, f), err_msg=f)
+    assert 2 <= len(dec.graphed.graphs) <= 5  # the main thread's and each worker's
+
+
+def test_mesh_decoder_replays_graphs(cuda):
+    """MeshDecoder (2, 2) on one card through its shards' graphs: repeated
+    decodes equal the CPU mesh's summary, and each shard holds one graph."""
+    cfg = DecoderConfig()
+    raw = stimulus.stream_windows(np.fromfile(DEMO, dtype=np.int16))[8:12]
+    md_gpu = MeshDecoder(cfg, make_mesh(2, 2, [cuda] * 4))
+    want = mesh_summary(md_gpu, MeshDecoder(cfg, make_mesh(2, 2, ["cpu"] * 4)).decode(raw))
+    for _ in range(3):
+        assert mesh_summary(md_gpu, md_gpu.decode(raw)) == want
+    assert all(len(run.__self__.graphs) == 1 for run in md_gpu._runs.flat)
+
+
+@pytest.mark.parametrize("prefilter", [None, 0])
+def test_launch_counts_per_pass_under_replay(cuda, prefilter):
+    """A StreamDecoder pass over the demo counts one launch per kernel per
+    window, the capture included: replays add what the capture recorded."""
+    windows = stimulus.stream_windows(np.fromfile(DEMO, dtype=np.int16))
+    cfg = DecoderConfig(survivor_prefilter=prefilter)
+    dec = StreamDecoder(cfg, cuda)
+    kernels.reset_launch_counts()
+    for w in windows:
+        dec.decode_block(w)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert {k: n for k, n in counts.items() if n} == {k: len(windows)
+                                                      for k in hw.path_kernels(cfg)}

@@ -25,7 +25,7 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "msk144cudecoder_tpu_torch"
 EVIDENCE = REPO / "tests" / "data" / "hwtests_gpu.json"
 STEPS = ("gpu_tests", "kernels", "busyband", "cli", "mesh", "inputs", "sensitivity", "soak",
-         "precision")
+         "precision", "graph")
 REPIN = ("re-run `python -m msk144cudecoder_tpu_torch.tools.run_hwtests` on the H100 and "
          "commit tests/data/hwtests_gpu.json")
 
