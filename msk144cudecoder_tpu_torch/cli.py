@@ -208,8 +208,10 @@ def decode_windowed(decoder, windows) -> None:
     enqueued before the previous one's results are fetched and
     post-processed. ScopedMetric spans as in the JAX CLI
     (MSK144_TPU_METRICS=1)."""
+    from .runtime import metrics
     from .runtime.metrics import ScopedMetric, SimpleTimer
 
+    metrics.refresh()
     timer = SimpleTimer()
     win_iter = iter(windows)
     while True:
@@ -240,61 +242,75 @@ def decode_throughput(decoder, windows, window_batch: int, pipeline_depth: int) 
     worker pool, while post-processing and output stay in stream order on
     this thread. The stream tail is zero-padded and its pad results
     dropped. Prints the steady-state Throughput line (after the first
-    batch, which carries the kernels' first-use cost) on stderr."""
+    batch, which carries the kernels' first-use cost) on stderr. Spans of
+    batch n carry request id n: its windows' `frame` spans, `frame_batch`
+    (this thread padding and stacking it), the worker's `decode_to_host`,
+    and `drain` (this thread's wait for it and its post-processing)."""
+    import itertools
     import time
     from collections import deque
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
 
+    from .runtime import metrics
     from .runtime.metrics import ScopedMetric
 
+    metrics.refresh()
     depth = max(1, pipeline_depth)
-    pending: deque = deque()  # (future, n_valid) FIFO
+    pending: deque = deque()  # (future, n_valid, batch id) FIFO
     n_done = 0  # windows post-processed after the first batch
     t_steady = None  # wall clock at the first batch's completion
     last_done = None  # wall clock at the previous batch's completion
 
     def drain_one():
         nonlocal n_done, t_steady, last_done
-        fut, n = pending.popleft()
-        with ScopedMetric("device_wait_transfer"):
-            res = fut.result()
-        now = time.perf_counter()
-        ms = 0.0 if last_done is None else (now - last_done) * 1e3
-        last_done = now
-        if t_steady is None:
-            t_steady = now
-        else:
-            n_done += n
-        with ScopedMetric("postprocess"):
-            for results in decoder.postprocess_batch(res, n):
-                emit(results, 0.0, 1)
-        emit([], ms, n)
+        fut, n, seq = pending.popleft()
+        with metrics.request(seq), ScopedMetric("drain"):
+            with ScopedMetric("device_wait_transfer"):
+                res = fut.result()
+            now = time.perf_counter()
+            ms = 0.0 if last_done is None else (now - last_done) * 1e3
+            last_done = now
+            if t_steady is None:
+                t_steady = now
+            else:
+                n_done += n
+            with ScopedMetric("postprocess"):
+                for results in decoder.postprocess_batch(res, n):
+                    emit(results, 0.0, 1)
+            emit([], ms, n)
 
-    def submit(batch_np: np.ndarray, n_valid: int):
+    def decode(batch_np: np.ndarray, seq: int):
+        with metrics.request(seq):
+            return decoder.decode_to_host(batch_np)
+
+    def submit(batch_np: np.ndarray, n_valid: int, seq: int):
         # gate on batches still computing, not on batches awaiting
         # post-processing: waiting for the oldest would idle every worker
         # behind one slow batch. Finished results wait in the deque
         # (bounded by 4 * depth) for their turn in stream order.
-        while (sum(not f.done() for f, _ in pending) >= depth
+        while (sum(not f.done() for f, _, _ in pending) >= depth
                or len(pending) >= 4 * depth):
             drain_one()
-        pending.append((pool.submit(decoder.decode_to_host, batch_np), n_valid))
+        pending.append((pool.submit(decode, batch_np, seq), n_valid, seq))
         while pending and pending[0][0].done():
             drain_one()
 
     with ThreadPoolExecutor(max_workers=depth) as pool:
-        batch: list = []
-        for window in windows:
-            batch.append(window)
-            if len(batch) == window_batch:
-                submit(np.stack(batch), window_batch)
-                batch = []
-        if batch:
-            n = len(batch)
-            pad = [np.zeros_like(batch[0])] * (window_batch - n)
-            submit(np.stack(batch + pad), n)
+        it = iter(windows)
+        for seq in itertools.count():
+            with metrics.request(seq):
+                batch = list(itertools.islice(it, window_batch))
+                n = len(batch)
+                if not n:
+                    break
+                with ScopedMetric("frame_batch"):
+                    pad = [np.zeros_like(batch[0])] * (window_batch - n)
+                    batch_np = np.stack(batch + pad)
+            submit(batch_np, n, seq)
+            if n < window_batch:
+                break
         while pending:
             drain_one()
     if n_done and t_steady is not None and last_done is not None and last_done > t_steady:
@@ -315,11 +331,14 @@ def profile_to(directory: str, device):
     a card); the Chrome trace goes to directory/trace.json. The throughput
     mode's device calls run on worker threads: their host ops are recorded
     where torch can profile all threads; CUDA kernels are recorded from
-    every thread either way."""
+    every thread either way. The program's spans appear as `msk144.<name>`
+    ranges on the threads that open them (runtime.metrics.trace_ranges)."""
     import os
 
     import torch
     from torch._C._profiler import _ExperimentalConfig
+
+    from .runtime import metrics
 
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -331,7 +350,8 @@ def profile_to(directory: str, device):
     os.makedirs(directory, exist_ok=True)
     with torch.profiler.profile(activities=activities,
                                 experimental_config=experimental) as prof:
-        yield
+        with metrics.trace_ranges():
+            yield
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     prof.export_chrome_trace(os.path.join(directory, "trace.json"))

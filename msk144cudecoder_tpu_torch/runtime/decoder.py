@@ -34,6 +34,7 @@ from .. import constants as C
 from ..config import DecoderConfig
 from ..ops import graphs, kernels, pipeline
 from ..protocol import msg77
+from . import metrics
 from .metrics import ScopedMetric
 from .result_filter import ResultFilter, ResultItem
 from .snr import SNRTracker
@@ -65,7 +66,8 @@ class StreamDecoder:
         self._pipeline: Optional[pipeline.DecodePipeline] = None
         self._graphed: Optional[graphs.GraphedPipeline] = None  # on a card
         self._pipeline_lock = threading.Lock()
-        self._streams = threading.local()  # each worker thread's CUDA stream
+        self._streams = threading.local()  # per thread: its CUDA stream, the shapes run
+        self._handle_shapes: Dict[int, set] = {}  # per worker stream handle: the shapes run
         self.survivor_capacity = (cfg.max_survivors if survivor_capacity is None
                                   else survivor_capacity)
         # with the xb prefilter on, survivor counts are lower bounds: only the
@@ -81,8 +83,10 @@ class StreamDecoder:
         self.result_filter = ResultFilter()
         self.hashes = msg77.CallsignHashTable()
         self._decode_cache: Dict[bytes, Tuple[bool, str]] = {}
+        self._memo_hits = 0  # of _decode_cache, over the decoder's life
         self._freqs = cfg.freqs if freqs is None else freqs
         self._pending: deque = deque()  # in-flight results of _run (FIFO)
+        self._blocks = 0  # decode_block calls: the request id of their spans
         # survivor-overflow warning aggregation (see _warn_overflow): global
         # and per-shard overflows tracked separately so the rate-limited
         # aggregate cites the right bound
@@ -118,15 +122,30 @@ class StreamDecoder:
 
     def _run(self, raw_batch):
         """One pass on the current stream: a PackedResult of a graph replay
-        on a card, a WindowDecodeResult on the CPU."""
-        raw = torch.from_numpy(np.ascontiguousarray(raw_batch)).to(self.device)
-        if self.device.type == "cuda":
+        on a card, a WindowDecodeResult on the CPU. Spans: `h2d`, the batch
+        to the device; `launch`, the pass enqueued (on a card the static
+        copy, the replay and the copy out; on the CPU the eager pass), or
+        `graph_capture` where this pass captures its key's graph."""
+        host = torch.from_numpy(np.ascontiguousarray(raw_batch))
+        cuda = self.device.type == "cuda"
+        with ScopedMetric("h2d"):
+            raw = host.to(self.device)
+        if not cuda:
+            with ScopedMetric("launch"):
+                return self.pipeline(raw)
+        # the submit path runs on the thread's current stream, taken to be
+        # the same stream at every submit of the thread (asking for it costs
+        # several us a pass)
+        shapes = getattr(self._streams, "current_shapes", None)
+        if shapes is None:
+            shapes = self._streams.current_shapes = set()
+        with ScopedMetric(_pass_span(shapes, raw)):
             return self.graphed.run(raw)
-        return self.pipeline(raw)
 
     def submit(self, raw_window: np.ndarray) -> None:
         """Enqueue the device pipeline on one raw window. Several windows
         may be in flight; collect() drains them in order."""
+        metrics.refresh()
         self._pending.append(self._run(np.asarray(raw_window)[None, :]))
 
     @property
@@ -138,15 +157,20 @@ class StreamDecoder:
         deduped results."""
         if not self._pending:
             raise RuntimeError("collect() without a submitted window")
+        metrics.refresh()
         with ScopedMetric("device_wait_transfer"):
             res = to_host(self._pending.popleft())
         with ScopedMetric("postprocess"):
             return self._postprocess_one(res, 0)
 
     def decode_block(self, raw_window: np.ndarray) -> List[ResultItem]:
-        """Synchronous submit+collect of one window."""
-        self.submit(raw_window)
-        return self.collect()
+        """Synchronous submit+collect of one window; the spans under it
+        carry the call's number as their request id."""
+        metrics.refresh()
+        self._blocks += 1
+        with metrics.request(self._blocks):
+            self.submit(raw_window)
+            return self.collect()
 
     def decode_many(self, raw_batch: np.ndarray,
                     n_valid: Optional[int] = None) -> List[List[ResultItem]]:
@@ -162,23 +186,35 @@ class StreamDecoder:
         host post-processing. Safe to call from several threads at once: on
         a card each thread decodes on its own CUDA stream (the kernels
         launch on the current stream), and the call returns once that
-        stream has finished."""
-        if self.device.type != "cuda":
-            return to_host(self._run(np.asarray(raw_batch)))
-        graphed = self.graphed
-        stream = getattr(self._streams, "stream", None)
-        if stream is None:
-            stream = self._streams.stream = torch.cuda.Stream(self.device)
-        host_raw = torch.from_numpy(np.ascontiguousarray(raw_batch)).pin_memory()
-        with torch.cuda.stream(stream):
-            out = graphed.run(host_raw.to(self.device, non_blocking=True), host=True)
-        stream.synchronize()
-        return out.numpy()
+        stream has finished. Spans: `decode_to_host`, with children `pin`
+        (the batch to pinned memory), `launch` or `graph_capture` (the copy
+        to the card, the pass and its copy back, enqueued) and `sync` (the
+        stream's synchronize)."""
+        metrics.refresh()
+        with ScopedMetric("decode_to_host"):
+            if self.device.type != "cuda":
+                return to_host(self._run(np.asarray(raw_batch)))
+            graphed = self.graphed
+            stream = getattr(self._streams, "stream", None)
+            if stream is None:
+                stream = self._streams.stream = torch.cuda.Stream(self.device)
+                # the pool hands a stream's handle out again, with the graphs
+                # an earlier stream of that handle captured
+                self._streams.shapes = self._handle_shapes.setdefault(stream.cuda_stream, set())
+            with ScopedMetric("pin"):
+                host_raw = torch.from_numpy(np.ascontiguousarray(raw_batch)).pin_memory()
+            span = _pass_span(self._streams.shapes, host_raw)
+            with torch.cuda.stream(stream), ScopedMetric(span):
+                out = graphed.run(host_raw.to(self.device, non_blocking=True), host=True)
+            with ScopedMetric("sync"):
+                stream.synchronize()
+            return out.numpy()
 
     def postprocess_batch(self, res: pipeline.WindowDecodeResult,
                           n_valid: int) -> List[List[ResultItem]]:
         """Sequential host post-processing of a fetched batch result, in
         stream order. Call from one thread, batches in stream order."""
+        metrics.refresh()
         return [self._postprocess_one(res, b) for b in range(n_valid)]
 
     # -- host side --------------------------------------------------------
@@ -187,6 +223,7 @@ class StreamDecoder:
         key = np.packbits(bits77).tobytes()
         hit = self._decode_cache.get(key)
         if hit is not None:
+            self._memo_hits += 1
             return hit
         if msg77.plausible_message_type(bits77):
             out = msg77.unpack77(bits77, self.hashes)
@@ -254,9 +291,10 @@ class StreamDecoder:
                             shard_surv)
         self.snr_tracker.process_powers(res.block_power[b])
         self.result_filter.block_begin()
-        found = np.asarray(res.found[b])
+        rows = np.nonzero(np.asarray(res.found[b]))[0]
+        hits = self._memo_hits
         with ScopedMetric("unpack77"):
-            for k in np.nonzero(found)[0]:
+            for k in rows:
                 bits77 = pipeline.unpack_message_bits(res.message_bits[b][k])
                 ok, text = self._unpack_cached(bits77)
                 if not ok:
@@ -271,9 +309,23 @@ class StreamDecoder:
                     pattern_idx=pi,
                     message=text,
                 )
+        metrics.count("unpack_lookups", len(rows))  # one memo lookup a row
+        metrics.count("memo_hits", self._memo_hits - hits)
         with ScopedMetric("result_filter"):
             self.result_filter.block_end()
             return self.result_filter.block_result()
+
+
+def _pass_span(shapes: set, raw: torch.Tensor) -> str:
+    """The span of a pass over raw on a stream that has run `shapes` (the
+    (shape, dtype) pairs of its earlier passes; raw's is added): a graph is
+    captured per (shape, dtype, stream), at its first pass, so
+    `graph_capture` there and `launch` after."""
+    key = (raw.shape, raw.dtype)
+    if key in shapes:
+        return "launch"
+    shapes.add(key)
+    return "graph_capture"
 
 
 def to_host(res) -> pipeline.WindowDecodeResult:

@@ -24,6 +24,7 @@ from typing import BinaryIO, Iterator, Optional
 import numpy as np
 
 from .. import constants as C
+from .metrics import ScopedMetric
 
 PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 SOURCE = PKG_DIR.parent / "native" / "msk144_io.cpp"
@@ -166,15 +167,26 @@ def convert_iq8(samples: np.ndarray) -> np.ndarray:
 def native_window_stream(fp: BinaryIO, read_mode: int,
                          chunk_bytes: int = 1 << 16) -> Iterator[np.ndarray]:
     """runtime.stream.window_stream driven by the native framer: the same
-    windows, and the same short-read message at the end of the stream."""
+    windows, and the same short-read message at the end of the stream. Each
+    window is a `frame` span (its pop, and the reads and pushes it needed)."""
     framer = NativeFramer(read_mode)
     item = 1 if read_mode == 2 else 2
     while True:
-        data = fp.read(chunk_bytes)
-        if not data:
+        with ScopedMetric("frame"):
+            w = _next_window(framer, fp, chunk_bytes)
+        if w is None:
             # EOF: report the unframed remainder like the reference's short read
             print(f"Incomplete read error. rc={framer.pending_bytes // item}", file=sys.stderr)
             return
+        yield w
+
+
+def _next_window(framer: NativeFramer, fp: BinaryIO, chunk_bytes: int) -> Optional[np.ndarray]:
+    """The framer's next window, reading and pushing chunks of fp until it
+    has one; None at the end of the stream."""
+    while (w := framer.pop()) is None:
+        data = fp.read(chunk_bytes)
+        if not data:
+            return None
         framer.push(data)
-        while (w := framer.pop()) is not None:
-            yield w
+    return w

@@ -453,6 +453,53 @@ def test_decode_to_host_threads_replay_their_own_graphs(cuda):
     assert 2 <= len(dec.graphed.graphs) <= 5  # the main thread's and each worker's
 
 
+def test_pass_spans_tell_a_capture_from_a_launch(cuda, monkeypatch):
+    """With tracing on, a pass's span is `graph_capture` exactly where the
+    pass captured a new graph (the decoder's graphs grew by one) and
+    `launch` elsewhere: decode_block on the current stream, decode_to_host
+    on the main thread's and a worker's own stream, a new batch shape, and
+    new streams on handles that already have their graph."""
+    import contextlib
+    import io
+
+    from msk144cudecoder_tpu_torch.runtime import metrics
+
+    demo = stimulus.stream_windows(np.fromfile(DEMO, dtype=np.int16))
+    dec = StreamDecoder(DecoderConfig(), cuda)
+    graphed = dec.graphed
+    monkeypatch.setenv(metrics.ENV, "1")
+    metrics.refresh()
+
+    def labels():
+        a = metrics.recorder().aggregates
+        return [a[n].count if n in a else 0 for n in ("graph_capture", "launch")]
+
+    def grew(fn) -> int:
+        n0, (c0, l0) = len(graphed.graphs), labels()
+        fn()
+        n1, (c1, l1) = len(graphed.graphs), labels()
+        assert (c1 - c0, l1 - l0) == (n1 - n0, 1 - (n1 - n0)), (n0, n1, c0, c1, l0, l1)
+        return n1 - n0
+
+    try:
+        with contextlib.redirect_stderr(io.StringIO()):
+            assert [grew(lambda: dec.decode_block(demo[i])) for i in range(3)] == [1, 0, 0]
+            assert [grew(lambda: dec.decode_to_host(demo[:8])) for _ in range(2)] == [1, 0]
+            with ThreadPoolExecutor(max_workers=1) as pool:
+                assert [pool.submit(grew, lambda: dec.decode_to_host(demo[:8])).result()
+                        for _ in range(2)] == [1, 0]
+            assert [grew(lambda: dec.decode_to_host(demo[:4])) for _ in range(2)] == [1, 0]
+            # a new thread each pass: new streams, whose handles the pool hands out again
+            fresh = []
+            for _ in range(72):
+                with ThreadPoolExecutor(max_workers=1) as pool:
+                    fresh.append(pool.submit(grew, lambda: dec.decode_to_host(demo[:2])).result())
+            assert fresh[0] == 1 and 0 in fresh, fresh
+    finally:
+        monkeypatch.setenv(metrics.ENV, "0")
+        metrics.refresh()
+
+
 def test_mesh_decoder_replays_graphs(cuda):
     """MeshDecoder (2, 2) on one card through its shards' graphs: repeated
     decodes equal the CPU mesh's summary, and each shard holds one graph."""
