@@ -1,11 +1,12 @@
 """StreamDecoder: the host loop around the decode pipeline.
 
 Port of msk144cudecoder_tpu/runtime/decoder.py: run the device pipeline on
-raw windows, then on the host unpack each decoded 77-bit payload to text
-(with a bounded content-keyed memo cache), track SNR, and deduplicate
-through the ResultFilter. `submit()` enqueues the device work (PyTorch's
-CUDA calls return before the device finishes) and `collect()` copies the
-oldest result to the host and post-processes it.
+raw windows, then on the host group each window's decoded rows by their
+77-bit payload, unpack each payload to text (through a bounded memo keyed on
+its packed bytes), track SNR, and deduplicate through the ResultFilter.
+`submit()` enqueues the device work (PyTorch's CUDA calls return before the
+device finishes) and `collect()` copies the oldest result to the host and
+post-processes it.
 
 On a card every pass (`submit`, `decode_block`, `decode_many`,
 `decode_to_host`) replays a CUDA graph of the pipeline (ops/graphs.py, the
@@ -22,6 +23,7 @@ reaches the kernels, or their plain versions, through the pipeline.
 
 from __future__ import annotations
 
+import itertools
 import sys
 import threading
 from collections import deque
@@ -42,6 +44,8 @@ from .snr import SNRTracker
 #: Cap on the content-keyed unpack memo (FIFO eviction): a stream decoder
 #: runs indefinitely, and a cap keeps the worst case bounded.
 DECODE_CACHE_MAX = 4096
+
+_NUM_AVG = C.PATTERN_NUM_AVG.tolist()  # per pattern, as Python ints
 
 
 class StreamDecoder:
@@ -219,12 +223,15 @@ class StreamDecoder:
 
     # -- host side --------------------------------------------------------
 
-    def _unpack_cached(self, bits77: np.ndarray) -> Tuple[bool, str]:
-        key = np.packbits(bits77).tobytes()
+    def _lookup(self, key: bytes) -> Tuple[bool, str]:
+        """(ok, text) of one payload, keyed by its packed bytes (np.packbits
+        order, pad bits zero, as pipeline.pack_message_bits writes them);
+        unpack77 on a miss only."""
         hit = self._decode_cache.get(key)
         if hit is not None:
             self._memo_hits += 1
             return hit
+        bits77 = pipeline.unpack_message_bits(np.frombuffer(key, np.uint8))
         if msg77.plausible_message_type(bits77):
             out = msg77.unpack77(bits77, self.hashes)
         else:
@@ -233,6 +240,9 @@ class StreamDecoder:
             self._decode_cache.pop(next(iter(self._decode_cache)))
         self._decode_cache[key] = out
         return out
+
+    def _unpack_cached(self, bits77: np.ndarray) -> Tuple[bool, str]:
+        return self._lookup(np.packbits(bits77).tobytes())
 
     #: windows between aggregated overflow warnings (the first overflow
     #: prints immediately; on a busy band every window can overflow)
@@ -291,30 +301,69 @@ class StreamDecoder:
                             shard_surv)
         self.snr_tracker.process_powers(res.block_power[b])
         self.result_filter.block_begin()
-        rows = np.nonzero(np.asarray(res.found[b]))[0]
-        hits = self._memo_hits
+        rows = np.flatnonzero(np.asarray(res.found[b]))
         with ScopedMetric("unpack77"):
-            for k in rows:
-                bits77 = pipeline.unpack_message_bits(res.message_bits[b][k])
-                ok, text = self._unpack_cached(bits77)
-                if not ok:
-                    continue
-                fi, pi, _ = pipeline.unpack_candidate_index(
-                    self.cfg, int(res.cand_index[b][k]))
-                self.result_filter.put_message(
-                    snr=self.snr_tracker.snr_i,
-                    f0=float(self._freqs[fi]),
-                    num_avg=int(C.PATTERN_NUM_AVG[pi]),
-                    nbadsync=int(res.nbadsync[b][k]),
-                    pattern_idx=pi,
-                    message=text,
-                )
-        metrics.count("unpack_lookups", len(rows))  # one memo lookup a row
-        metrics.count("memo_hits", self._memo_hits - hits)
+            if rows.size:
+                self._put_messages(res, b, rows)
         with ScopedMetric("result_filter"):
             self.result_filter.block_end()
             return self.result_filter.block_result()
 
+    def _put_messages(self, res, b: int, rows: np.ndarray) -> None:
+        """One put_message per message text among window b's decoded rows,
+        for the row the result filter keeps: least (num_avg, nbadsync), the
+        earliest on a tie. Rows are grouped by their packed payload, in
+        order of first row: one memo lookup per payload, so the misses
+        unpack in the order a lookup per row would make them. The row
+        fields leave numpy in one tolist each: a window has tens of rows,
+        and each numpy call runs cold between framing and the device
+        fetch, so one pass in Python over lists beats a chain of small
+        array operations."""
+        rows = rows.tolist()
+        n = len(rows)
+        bits = np.asarray(res.message_bits[b])
+        width = bits.shape[-1]
+        packed = bits.tobytes()
+        keys = [packed[k * width:(k + 1) * width] for k in rows]
+        ids: Dict[bytes, int] = {}
+        group = [ids.setdefault(key, len(ids)) for key in keys]
+        memo = self._decode_cache
+        hits = self._memo_hits
+        evict = len(memo) + sum(key not in memo for key in ids) - DECODE_CACHE_MAX
+        if evict > 0 and (evict > len(memo)
+                          or not ids.keys().isdisjoint(itertools.islice(memo, evict))):
+            # a payload of this window may leave the FIFO before its last
+            # row: look every row up, in row order, each row its own group
+            group = range(n)
+            looked = [self._lookup(key) for key in keys]
+        else:
+            looked = [self._lookup(key) for key in ids]
+            self._memo_hits += n - len(ids)  # a payload's later rows
+        metrics.count("unpack_lookups", n)  # every row looks its payload up
+        metrics.count("memo_hits", self._memo_hits - hits)
+        metrics.count("unpack_payloads", len(ids))
+        cand = np.asarray(res.cand_index[b]).tolist()
+        nbadsync = np.asarray(res.nbadsync[b]).tolist()
+        per_f = self.cfg.scan_depth * self.cfg.candidates_per_pattern
+        per_p = self.cfg.candidates_per_pattern
+        best: Dict[str, tuple] = {}  # text -> ((num_avg, nbadsync), row)
+        for (ok, text), k in zip((looked[g] for g in group), rows):
+            if ok:
+                rank = (_NUM_AVG[cand[k] % per_f // per_p], nbadsync[k])
+                kept = best.get(text)
+                if kept is None or rank < kept[0]:  # rows ascend: the earliest keeps a tie
+                    best[text] = (rank, k)
+        snr = self.snr_tracker.snr_i
+        for text, ((num_avg, nbad), k) in best.items():
+            fi, pi, _ = pipeline.unpack_candidate_index(self.cfg, cand[k])
+            self.result_filter.put_message(
+                snr=snr,
+                f0=float(self._freqs[fi]),
+                num_avg=num_avg,
+                nbadsync=nbad,
+                pattern_idx=pi,
+                message=text,
+            )
 
 def _pass_span(shapes: set, raw: torch.Tensor) -> str:
     """The span of a pass over raw on a stream that has run `shapes` (the

@@ -4,10 +4,10 @@ request id from framing to post-processing, with no span for the empty read
 at the stream's end; a new recording starts empty on every thread; a pass
 is a graph capture at its stream's first shape only; the eight spans the reference
 prints keep its format and nesting on standard error, and no other span
-prints; the unpack memo's counters equal a direct count; under a torch
-profiler a span is an `msk144.<name>` range that the recorder's anchor
-places on the trace's clock; the CLI's --profile-dir trace carries the
-spans of every thread."""
+prints; the unpack memo's counters equal a direct count from the fetched
+result; under a torch profiler a span is an `msk144.<name>` range that the
+recorder's anchor places on the trace's clock; the CLI's --profile-dir
+trace carries the spans of every thread."""
 
 import contextlib
 import io
@@ -204,20 +204,37 @@ def test_printed_spans_keep_the_reference_format_and_nesting(switch, windows):
 
 
 def test_memo_counters_equal_a_direct_count(switch, windows):
-    class Counted(StreamDecoder):
-        lookups = hits = 0
+    """Counted from the fetched result: a lookup per decoded row, a hit per
+    row whose payload an earlier row carried (the memo starts empty and
+    keeps every payload of 8 windows), a payload per distinct payload of a
+    window."""
+    fetched = []
 
-        def _unpack_cached(self, bits77):
-            Counted.lookups += 1
-            Counted.hits += np.packbits(bits77).tobytes() in self._decode_cache
-            return super()._unpack_cached(bits77)
+    class Kept(StreamDecoder):
+        def decode_to_host(self, raw_batch):
+            fetched.append(super().decode_to_host(raw_batch))
+            return fetched[-1]
 
     switch(True)
-    dec = Counted(CFG, "cpu")
+    dec = Kept(CFG, "cpu")
     quiet(dec.decode_many, np.stack(windows[:8]))
+    (res,) = fetched
+    seen = set()
+    lookups = hits = payloads = 0
+    for b in range(len(res.found)):
+        keys = [res.message_bits[b][k].tobytes() for k in np.flatnonzero(res.found[b])]
+        lookups += len(keys)
+        payloads += len(set(keys))
+        for key in keys:
+            hits += key in seen
+            seen.add(key)
     counters = metrics.recorder().counters
-    assert Counted.lookups > Counted.hits > 0
-    assert (counters["unpack_lookups"], counters["memo_hits"]) == (Counted.lookups, Counted.hits)
+    assert lookups > payloads and lookups > hits > 0
+    assert list(dec._decode_cache) == list(dict.fromkeys(
+        res.message_bits[b][k].tobytes() for b in range(len(res.found))
+        for k in np.flatnonzero(res.found[b])))
+    assert (counters["unpack_lookups"], counters["memo_hits"], counters["unpack_payloads"]) == (
+        lookups, hits, payloads)
 
 
 def test_profiler_sees_each_span_where_the_anchor_puts_it(switch):
