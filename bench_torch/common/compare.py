@@ -3,8 +3,10 @@
 After the window has closed and the program's state is freed, the plain
 reference (reference.py) decodes the windows whose answers the recorder
 kept (a uniform sample of the window's windows, drawn from the seed), cut
-afresh from the recording, and runs its own SNR tracker over every window
-the stream carried before them. The numbers compared, each against the
+afresh from the recording, on the path the configuration states (the xb
+prefilter's rows, or with `survivor_prefilter` 0 the full demod of every
+candidate), and runs its own SNR tracker over every window the stream
+carried before them. The numbers compared, each against the
 cell's limit in `limits/<workload>.json`:
 
   unanswered    windows handed to the entry that it never answered
@@ -58,8 +60,9 @@ def stream_snr(powers: np.ndarray, last: int) -> np.ndarray:
 
 
 def row_key(settings: R.Settings, cand: int, pos: int) -> tuple:
-    """A decoded row's (frequency, pattern, lag): its candidate index less
-    its rank in the scan cell, and its lag modulo the shift of whole frames
+    """A decoded row's (frequency, pattern, lag): its candidate index (flat
+    into the (F, P, k) grid on both paths) less its rank in the scan cell,
+    and its lag modulo the shift of whole frames
     that leaves its pattern's sum unchanged (a frame for the all-frames
     pattern, whose slices tie by construction)."""
     f, rem = divmod(cand, settings.scan_depth * settings.candidates_per_pattern)

@@ -106,12 +106,14 @@ def card_state() -> Dict:
 
 def run_cell(workload: str, seed: int, seconds: float, trace_on: bool, device: str,
              t_start: float, control: bool = False, decoder_base=None,
-             hops: Optional[int] = None, traffic_overrides: Optional[Dict] = None) -> Dict:
+             hops: Optional[int] = None, traffic_overrides: Optional[Dict] = None,
+             config_overrides: Optional[Dict] = None) -> Dict:
     """One run; returns the result line's object. `control` decodes in the
     port's bf16 mode (the lower precision the check must refuse);
     `decoder_base` replaces the port's StreamDecoder class, `hops` the
-    recording's length and `traffic_overrides` entries of the traffic file
-    (the CPU checks run small)."""
+    recording's length, `traffic_overrides` entries of the traffic file
+    (the CPU checks run small) and `config_overrides` keywords of the
+    configuration's decoder (the CPU checks of another path)."""
     import torch
 
     from msk144cudecoder_tpu_torch.config import DecoderConfig
@@ -123,7 +125,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace_on: bool, device: s
     if not native.available():
         raise SystemExit("error: the port's native framer (runtime/native.py) did not build; "
                          "the benchmark times no other framer")
-    decoder_kw = dict(cell.config["decoder"])
+    decoder_kw = {**cell.config["decoder"], **(config_overrides or {})}
     settings = reference.Settings.from_config(decoder_kw)
     run = Run(cell, settings)
     rec = generator.make(seed, traffic, settings.freqs, hops)

@@ -5,20 +5,30 @@ semantics the configuration states: the analytic signal (shift, 15-tap
 half-band FIR both ways, shift back), the sync scan of every frequency of
 the grid at every dec-th lag with the frame-averaging patterns up to the
 scan depth, the best lag of each 256-lag slice and the top-k slices per
-(frequency, pattern), the xb prefilter (at most `per_cell` rows per cell,
-a per-pattern quota), the survivor demod (pattern-averaged mixed-down frame,
-carrier phase from both sync regions, the half-sine matched filter,
-nbadsync), the survivor choice (max_survivors rows by nbadsync, then xb,
-under per-pattern quotas), LDPC(128,90) belief propagation with the CRC-13
-gate, and on the host unpack77, the per-window dedup and the SNR tracker.
+(frequency, pattern), then one of two paths, as the configuration's
+`survivor_prefilter` resolves:
+
+- the prefilter path: the xb prefilter (at most `per_cell` rows per cell,
+  a per-pattern quota), the survivor demod of those rows (pattern-averaged
+  mixed-down frame, carrier phase from both sync regions, the half-sine
+  matched filter, nbadsync) and the survivor choice among them
+  (max_survivors rows by nbadsync, then xb, under per-pattern quotas over
+  the pattern-major rows);
+- the full-demod path (`survivor_prefilter` <= 0, or a size that covers
+  the grid): the demod of every (frequency, pattern, lag) candidate, in
+  blocks of (window, frequency) cells, and the same survivor choice over
+  the whole grid, each pattern's quota taken under a mask of its rows;
+
+then on both paths LDPC(128,90) belief propagation with the CRC-13 gate,
+and on the host unpack77, the per-window dedup and the SNR tracker.
 
 It transcribes the port's CPU path (its kernels' plain versions and its
 glue), which the repository's tests hold equal to the JAX package's
-decode, as it stood when the benchmark was written; it imports nothing of
-the program and builds every table itself from the protocol constants in
-`proto/`. It covers the configurations the benchmark runs: 16-bit audio,
-analytic method 2, the prefilter path, float32 (TF32 off). Batches of
-windows run on any device; the host post-processing runs window by window.
+decode; it imports nothing of the program and builds every table itself
+from the protocol constants in `proto/`. It covers the configurations the
+benchmark runs: 16-bit audio, analytic method 2, either path, float32
+(TF32 off). Batches of windows run on any device; the host
+post-processing runs window by window.
 """
 
 from __future__ import annotations
@@ -38,6 +48,11 @@ _N = C.WINDOW_LEN
 _TAPS = C.SYNC_CORR_LEN
 _M = C.PATTERN_LEN
 _PREFILTER_BLK = 128
+# the full demod's block: the candidates' frames (cells, P, k, 864) complex64
+# of one block of (window, frequency) cells, its largest intermediate (the
+# gather index has as many int64); with the pattern sums and the tail's
+# temporaries a block holds about 1.5 GiB at its peak
+_FULL_BLOCK_BYTES = 256 << 20
 _LOG_FLOOR = 2.0 ** -80
 TOPK_MAX_THRESHOLD = 4
 _XB_LO = 2.0 ** -4
@@ -220,13 +235,21 @@ def _order_two_keys(nbad, xb, k: int):
     return torch.gather(o1, -1, o2)[..., :k]
 
 
-def _order_one_key(nbad, xb, k: int, thr: int):
+def _order_one_key(nbad, xb, k: int, thr: int, mask=None):
+    """The single-key order; rows outside `mask` are keyed 0 and rank last
+    (real keys are > 0)."""
     cls = torch.clamp_max(nbad, thr + 1).to(torch.int32)
     key = torch.ldexp(torch.clamp(xb, _XB_LO, _XB_HI), -24 * cls)
+    if mask is not None:
+        key = torch.where(mask, key, torch.zeros((), dtype=key.dtype, device=key.device))
     return torch.sort(key, dim=-1, descending=True, stable=True)[1][..., :k]
 
 
-def survivor_index(nbad, xb, s: Settings):
+def survivor_index(nbad, xb, s: Settings, p_idx=None):
+    """(B, k) survivors of the rows (B, nc). With threshold <= 4 and
+    k >= P > 1 a per-pattern quota: p_idx None means the prefilter's
+    pattern-major rows (a slice a pattern, two keys), else p_idx (nc,) is
+    each row's pattern on the whole grid (a mask a pattern, the single key)."""
     P = s.scan_depth
     nc = nbad.shape[-1]
     k = min(s.max_survivors, nc)
@@ -235,10 +258,14 @@ def survivor_index(nbad, xb, s: Settings):
         return _order_two_keys(nbad, xb, k)
     if not k >= P > 1:
         return _order_one_key(nbad, xb, k, thr)
-    offs = np.cumsum([0] + split_quota(nc, P))
-    parts = [_order_two_keys(nbad[..., int(offs[p]):int(offs[p + 1])],
-                             xb[..., int(offs[p]):int(offs[p + 1])], q) + int(offs[p])
-             for p, q in enumerate(split_quota(k, P))]
+    if p_idx is not None:
+        parts = [_order_one_key(nbad, xb, q, thr, mask=p_idx == p)
+                 for p, q in enumerate(split_quota(k, P))]
+    else:
+        offs = np.cumsum([0] + split_quota(nc, P))
+        parts = [_order_two_keys(nbad[..., int(offs[p]):int(offs[p + 1])],
+                                 xb[..., int(offs[p]):int(offs[p + 1])], q) + int(offs[p])
+                 for p, q in enumerate(split_quota(k, P))]
     return torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
 
 
@@ -265,7 +292,14 @@ def demod_survivors(c, W, chi, pos, f_idx, p_idx, masks, sync_conj, pp12, sync_p
                         (idx - kk * _N).reshape(idx.shape[0], idx.shape[1], -1)).reshape(idx.shape)
     g = torch.gather(gam, -1, kk.reshape(idx.shape[:3] + (-1,))).reshape(idx.shape)
     frames = (vals * g).sum(dim=2) * W[f, : C.FRAME_LEN]
+    return demod_frames(frames, sync_conj, pp12, sync_pm)
 
+
+def demod_frames(frames, sync_conj, pp12, sync_pm):
+    """(softbits (..., 128), nbadsync (...)) of frames (..., 864): the
+    carrier phase from both sync regions, the derotated half-sine matched
+    filter, the scaled data softbits and the sync word's bad bits."""
+    dev = frames.device
     s = ((frames[..., :_TAPS] * sync_conj).sum(dim=-1)
          + (frames[..., C.SECOND_SYNC_SAMPLE: C.SECOND_SYNC_SAMPLE + _TAPS] * sync_conj).sum(dim=-1))
     phase0 = torch.atan2(s.imag, s.real)
@@ -287,6 +321,57 @@ def demod_survivors(c, W, chi, pos, f_idx, p_idx, masks, sync_conj, pp12, sync_p
         hard = torch.where(sb[..., base: base + 8] < 0.0, -1, 1).to(torch.int32)
         nbad = nbad + ((8 - (hard * sync_pm).sum(dim=-1)) // 2).to(torch.int32)
     return soft, nbad
+
+
+def full_rows(xb, pos, P: int, k: int):
+    """Every candidate of the grid as a row, in (F, P, k) order: (xb, pos)
+    (B, nc), the flat index (B, nc) and each row's pattern (nc,)."""
+    nb = xb.shape[0]
+    nc = xb[0].numel()
+    flat = torch.arange(nc, dtype=torch.int32, device=xb.device)
+    p_idx = torch.div(flat % (P * k), k, rounding_mode="floor")
+    return xb.reshape(nb, nc), pos.reshape(nb, nc), flat.expand(nb, -1), p_idx
+
+
+def pattern_sums(z, depth: int):
+    """(..., N) -> (..., P, N): each pattern's sum of the frames its mask
+    keeps, sum_m mask_p[m] roll(z, -864 m); the patterns 0-5 as running
+    sums, the gap patterns 6 = {0, 3} and 7 = {0, 3, 4} on their own, each
+    summed in ascending m."""
+    rolls = [torch.roll(z, -C.FRAME_LEN * m, dims=-1) for m in range(_M)]
+    out = [rolls[0]]
+    for m in range(1, _M):
+        out.append(out[-1] + rolls[m])
+    out.append(rolls[0] + rolls[3])
+    out.append(out[-1] + rolls[4])
+    return torch.stack(out[:depth], dim=-2)
+
+
+def demod_all(c, W, pos, sync_conj, pp12, sync_pm):
+    """(softbits (B, nc, 128), nbadsync (B, nc)) of every candidate pos
+    (B, F, P, k), rows in (F, P, k) order: each window mixed down at each
+    frequency, its pattern sums, each candidate's frame cut from its
+    pattern's sum at its lag (wrapping), then the tail. Runs in blocks of
+    (window, frequency) cells whose frames stay within _FULL_BLOCK_BYTES."""
+    nb, F, P, k = pos.shape
+    dev = c.device
+    sb = torch.empty((nb, F, P, k, C.NUM_DATA_BITS), dtype=torch.float32, device=dev)
+    nbad = torch.empty((nb, F, P, k), dtype=torch.int32, device=dev)
+    cells = max(1, _FULL_BLOCK_BYTES // (P * k * C.FRAME_LEN * 8))
+    wb = min(nb, cells)
+    fb = max(1, min(F, cells // wb))
+    lane = torch.arange(C.FRAME_LEN, device=dev)
+    for w0 in range(0, nb, wb):
+        for f0 in range(0, F, fb):
+            za = pattern_sums(c[w0: w0 + wb, None, :] * W[f0: f0 + fb], P)
+            zad = torch.cat([za, za[..., : C.FRAME_LEN - 1]], dim=-1)
+            p = pos[w0: w0 + wb, f0: f0 + fb]
+            idx = p.long()[..., None] + lane
+            frames = torch.gather(zad, -1, idx.reshape(idx.shape[:3] + (-1,)))
+            frames = frames.reshape(p.shape + (C.FRAME_LEN,))
+            sb[w0: w0 + wb, f0: f0 + fb], nbad[w0: w0 + wb, f0: f0 + fb] = demod_frames(
+                frames, sync_conj, pp12, sync_pm)
+    return sb.reshape(nb, -1, C.NUM_DATA_BITS), nbad.reshape(nb, -1)
 
 
 # --- LDPC ---------------------------------------------------------------------
@@ -374,9 +459,7 @@ class ReferenceDecoder:
         self.B, self.E_dec, self.chi, self.W = freq_tables(s.freqs, s.scan_decimation, self.device)
         F = len(s.freqs)
         self.nc = F * s.scan_depth * s.candidates_per_pattern
-        self.pre = prefilter_size(s, self.nc)
-        if not self.pre:
-            raise ValueError("the reference covers the prefilter path (survivor_prefilter > 0)")
+        self.pre = prefilter_size(s, self.nc)  # 0: the full-demod path
         per_cell = s.prefilter_per_cell
         while per_cell < s.candidates_per_pattern and F * s.scan_depth * per_cell < self.pre:
             per_cell += 1
@@ -405,10 +488,15 @@ class ReferenceDecoder:
         c = analytic(torch.from_numpy(raw).to(self.device))
         pos, xb = scan(c, self.B, self.E_dec, self.chi, s.scan_depth,
                        s.candidates_per_pattern, s.scan_decimation)
-        xb_f, pos_f, f_idx, p_idx, flat = prefilter(xb, pos, self.pre, self.per_cell)
-        sb, nbad = demod_survivors(c, self.W, self.chi, pos_f, f_idx, p_idx, self.masks,
-                                   self.sync_conj, self.pp12, self.sync_pm)
-        top = survivor_index(nbad, xb_f, s)
+        if self.pre:
+            xb_f, pos_f, f_idx, p_idx, flat = prefilter(xb, pos, self.pre, self.per_cell)
+            sb, nbad = demod_survivors(c, self.W, self.chi, pos_f, f_idx, p_idx, self.masks,
+                                       self.sync_conj, self.pp12, self.sync_pm)
+            top = survivor_index(nbad, xb_f, s)
+        else:
+            xb_f, pos_f, flat, p_idx = full_rows(xb, pos, s.scan_depth, s.candidates_per_pattern)
+            sb, nbad = demod_all(c, self.W, pos, self.sync_conj, self.pp12, self.sync_pm)
+            top = survivor_index(nbad, xb_f, s, p_idx)
         llr = torch.gather(sb, 1, top[..., None].expand(-1, -1, sb.shape[-1]))
         nbad_k = torch.gather(nbad, 1, top)
         valid = nbad_k <= s.nbadsync_threshold

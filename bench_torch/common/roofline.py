@@ -1,8 +1,8 @@
 """Peaks of one NVIDIA H100 SXM and the least time of each kernel's work.
 
 A copy of the arithmetic of `chip_smoke.py` (`bound`, `split_ops`,
-`scan_bound`, `bp_bound`, and its B2 count), counted from the algorithm at
-a cell's shapes, whatever kernel computes it. NVIDIA's data sheet, SXM part,
+`scan_bound`, `bp_bound`, its B2 and B4 counts), counted from the algorithm
+at a cell's shapes, whatever kernel computes it. NVIDIA's data sheet, SXM part,
 dense rates at the full 700 W: FP32 67 TFLOP/s outside the tensor cores
 (BF16 there at twice that), BF16 on the tensor cores 989 TFLOP/s, HBM3 3.35
 TB/s; the special-function units give 16 results per clock per SM on 132
@@ -19,7 +19,7 @@ PEAK_BF16 = 2 * PEAK_FP32  # FLOP/s, outside the tensor cores
 PEAK_BF16_TENSOR = 989e12  # FLOP/s, bf16 x bf16 products with float32 sums
 PEAK_HBM = 3.35e12  # bytes/s
 PEAK_SFU = 16 * 132 * 1.98e9  # special-function results/s
-# the matched-filter tail of one row (B2): the products of frame and taps
+# the matched-filter tail of one row (B2, B4): the products of frame and taps
 # (two 42-tap complex sync sums, 144 12-tap softbit dots), then the
 # derotation of each tap's sample and the softbits' mean and variance
 TAIL_DOT_FLOPS = 2 * 42 * 8 + 144 * 12 * 2
@@ -92,3 +92,20 @@ def bp_bound(updates: float, rows: int) -> tuple[float, str]:
     found flag, codeword, iterations and hard errors out once."""
     nbytes = rows * (4 * C.NUM_DATA_BITS + 1) + rows * (1 + C.NUM_DATA_BITS + 4 + 4)
     return bound(flops=updates * BP_EDGES * 12, sfu=updates * BP_EDGES * 3, nbytes=nbytes)
+
+
+def demod_bound(n_win: int, F: int, depth: int, k: int,
+                fast: bool = False) -> tuple[float, str]:
+    """The full demod (kernel B4) of every candidate of the grid, n_win x F
+    x depth x k rows: per (window, f) the mix (6 FLOPs a sample) and one
+    complex add a sample per pattern (the running pattern sums), per row
+    the tail (in the bf16 mode only the tail's products take bf16
+    operands); the windows, W, the rows' positions and the demod tables in
+    and (softbits, nbadsync) out once."""
+    rows = n_win * F * depth * k
+    mix = n_win * F * C.WINDOW_LEN * (6 + 2 * depth)
+    tables = 42 * 8 + 12 * 4 + 8 * 6 * 4 + 8 * 4
+    nbytes = (8 * n_win * C.WINDOW_LEN + 8 * F * C.WINDOW_LEN + 4 * rows + tables
+              + 4 * rows * C.NUM_DATA_BITS + 4 * rows)
+    return bound(**split_ops(fast, f32=mix + TAIL_F32_FLOPS * rows, dot=TAIL_DOT_FLOPS * rows),
+                 nbytes=nbytes)

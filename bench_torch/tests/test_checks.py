@@ -31,14 +31,18 @@ RECORDING = "default.recording_busy"
 LIVE = "default.live"
 
 
-def run(cell, base=None, control=False, seconds=2.0):
+# the full-demod path: every candidate demodulated (kernel B4 on a card)
+FULL = {"survivor_prefilter": 0}
+
+
+def run(cell, base=None, control=False, seconds=2.0, config=None):
     import torch
 
     torch.set_num_threads(4)
     driver = harness.Cell(cell).traffic["driver"]
     return harness.run_cell(cell, 20240917, seconds, False, "cpu", time.perf_counter(),
                             control=control, decoder_base=base, hops=160,
-                            traffic_overrides=SMALL[driver])
+                            traffic_overrides=SMALL[driver], config_overrides=config)
 
 
 def port_decoder():
@@ -103,4 +107,22 @@ def test_control_is_refused():
     (LIVE, stale_state), (LIVE, altered_answer)])
 def test_fault_is_refused(cell, fault):
     out = run(cell, base=fault())
+    assert not out["correct"], out["checks"]
+
+
+def test_sound_run_of_the_full_demod_path_is_correct():
+    out = run(RECORDING, config=FULL)
+    assert out["correct"], out["checks"]
+    assert out["checks"]["xb_gap"]["value"] == 0.0
+    assert out["info"]["check"]["rows_found_both"] > 0
+
+
+def test_control_of_the_full_demod_path_is_refused():
+    out = run(RECORDING, control=True, config=FULL)
+    assert not out["correct"], out["checks"]
+
+
+@pytest.mark.parametrize("fault", [altered_answer, stale_state])
+def test_fault_on_the_full_demod_path_is_refused(fault):
+    out = run(RECORDING, base=fault(), config=FULL)
     assert not out["correct"], out["checks"]

@@ -82,6 +82,34 @@ def test_survivor_bound_matches_perf_table(F, depth, want):
     assert by == "operations" and round(ms, 4) == want
 
 
+@pytest.mark.parametrize("n_win, F, depth, want", [(64, 501, 6, 0.2459), (8, 101, 4, 0.0054)])
+@pytest.mark.parametrize("fast", [False, True])
+def test_demod_bound_matches_chip_smoke(n_win, F, depth, want, fast):
+    """chip_smoke.py's B4 count (phase 2), on tensors of the kernel's shapes
+    that hold no data, and the bound in PERF.md's table of kernels."""
+    import torch
+
+    from msk144cudecoder_tpu_torch.ops import tables
+
+    cs = _chip_smoke()
+    k, N = 8, reference.C.WINDOW_LEN
+    rows = n_win * F * depth * k
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    args = (meta((n_win, N), torch.complex64), meta((F, N), torch.complex64),
+            meta((n_win, F, depth, k), torch.int32), *tables.demod_to_torch("cpu"),
+            meta((n_win, F, depth, k, 128), torch.float32), meta((n_win, F, depth, k), torch.int32))
+    want_ms, want_by = cs.bound(
+        **cs.split_ops(fast, f32=n_win * F * N * (6 + 2 * depth) + cs.TAIL_F32_FLOPS * rows,
+                       dot=cs.TAIL_DOT_FLOPS * rows),
+        nbytes=cs.tensor_bytes(*args))
+    ms, by = roofline.demod_bound(n_win, F, depth, k, fast)
+    assert (ms, by) == (want_ms, want_by)
+    assert by == "bytes" and round(ms, 4) == want
+
+
 def test_importing_the_benchmark_pulls_in_no_jax():
     code = ("import sys; sys.path.insert(0, %r)\n"
             "import bench_torch.run\n"
