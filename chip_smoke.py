@@ -260,6 +260,7 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    from bench_torch.common import roofline
     from msk144cudecoder_tpu_torch import constants as C
     from msk144cudecoder_tpu_torch import stimulus
     from msk144cudecoder_tpu_torch.config import DecoderConfig
@@ -434,16 +435,9 @@ def main() -> int:
                 demod.demod_candidates_plain(*a)
 
         plain_ms = cuda_time(plain_all, reps=1 if nw == 64 else 3, warmup=1)
-        # per (window, f): the mix (6 FLOPs a sample), then one complex add a
-        # sample per pattern (the incremental pattern sums); per row the
-        # matched-filter tail (in the bf16 mode only the tail's products
-        # take bf16 operands)
-        bound_ms, bound_by = bound(
-            **split_ops(cfg.fast_math,
-                        f32=nw * cfg.num_freqs * C.WINDOW_LEN * (6 + 2 * cfg.scan_depth)
-                        + TAIL_F32_FLOPS * nb_k.numel(),
-                        dot=TAIL_DOT_FLOPS * nb_k.numel()),
-            nbytes=tensor_bytes(*dargs[:3], *pipe.demod_tables, sb_k, nb_k))
+        # the benchmark's count of B4's work (bench_torch/common/roofline.py)
+        bound_ms, bound_by = roofline.demod_bound(nw, cfg.num_freqs, cfg.scan_depth,
+                                                  cfg.candidates_per_pattern, cfg.fast_math)
         name = hw.demod_name(cfg, nw, nb_k.numel())
         log(f"[B4] {name}: max rel {stats['max_rel']:.3g}, nbadsync equal on "
             f"{stats['nbadsync_equal_share']:.6f} of rows ({stats['nbadsync_unequal']} unequal, "

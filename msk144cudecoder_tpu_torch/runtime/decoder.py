@@ -297,6 +297,13 @@ class StreamDecoder:
         """Host post-processing for window b of a batched result."""
         n_surv = int(res.num_survivors[b])
         shard_surv = int(res.shard_survivors[b])
+        # rows under the threshold (exact on the full-demod path, a lower
+        # bound behind the prefilter) and the most of them BP can take: the
+        # rows it takes where every pattern's survivors fill its quota or
+        # every pattern's fit in it, on one device; more where they do not,
+        # or where a mesh's shards hold unequal counts
+        metrics.count("grid_survivors", n_surv)
+        metrics.count("survivors_decoded", min(n_surv, self.survivor_capacity))
         self._warn_overflow(n_surv if n_surv > self.survivor_capacity else 0,
                             shard_surv)
         self.snr_tracker.process_powers(res.block_power[b])
