@@ -128,6 +128,11 @@ import time
 import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+# the card's peaks and each kernel's least time: the benchmark's one copy
+from bench_torch.common import roofline  # noqa: E402
+from bench_torch.common.roofline import (  # noqa: E402
+    TAIL_DOT_FLOPS, TAIL_F32_FLOPS, bound, scan_bound, split_ops)
 HOP_MS = 216.0  # one 2592-sample hop at 12 kS/s: real time per window
 DEVICE = "cuda:0"
 
@@ -175,77 +180,20 @@ def kernel_times(fn, reps: int) -> tuple[float, float]:
     return cuda_time(fn, reps, queued=True), cuda_time(fn, reps)
 
 
-# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet and its
-# H100 architecture whitepaper): FP32 outside the tensor cores, BF16 outside
-# them (packed bf16x2 instructions, twice FP32's rate: 133.8 TFLOP/s), dense
-# BF16 on the tensor cores and HBM3; the special-function units give 16
-# results per clock per SM (CUDA C++ Programming Guide, compute capability
-# 9.0) on 132 SMs at the 1.98 GHz boost clock.
-PEAK_FP32 = 67e12  # FLOP/s
-PEAK_BF16 = 2 * PEAK_FP32  # FLOP/s, outside the tensor cores
-PEAK_BF16_TENSOR = 989e12  # FLOP/s, bf16 x bf16 products with float32 sums
-PEAK_HBM = 3.35e12  # bytes/s
-PEAK_SFU = 16 * 132 * 1.98e9  # special-function results/s
-# the matched-filter tail of one row (B2, B4): the products of frame and
-# taps (two 42-tap complex sync sums, 144 12-tap softbit dots), then the
-# derotation of each tap's sample and the softbits' mean and variance
-TAIL_DOT_FLOPS = 2 * 42 * 8 + 144 * 12 * 2
-TAIL_F32_FLOPS = 144 * 12 * 2 + 4 * 144
-
-
-def bound(flops: float = 0.0, nbytes: float = 0.0, sfu: float = 0.0,
-          bf16_flops: float = 0.0, tensor_flops: float = 0.0) -> tuple[float, str]:
-    """The least time the card could take (ms) and what bounds it: the
-    larger of the operations over their peak rate and the bytes over HBM's.
-    FP32 and BF16 operations outside the tensor cores share the FMA pipes,
-    so their times add; the tensor cores and the special-function units run
-    beside them."""
-    simt_s = flops / PEAK_FP32 + bf16_flops / PEAK_BF16
-    ops_ms = max(simt_s, tensor_flops / PEAK_BF16_TENSOR, sfu / PEAK_SFU) * 1e3
-    bytes_ms = nbytes / PEAK_HBM * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
-
-
-def split_ops(fast: bool, f32: float = 0.0, bf16: float = 0.0, dot: float = 0.0) -> dict:
-    """bound()'s operation counts of a kernel whose work is f32 (float32 in
-    both modes), bf16 (bf16 arithmetic in the fast mode) and dot (products
-    of bf16 operands summed in float32 in the fast mode, the work of a bf16
-    tensor-core dot): all float32 in the float32 mode."""
-    if not fast:
-        return dict(flops=f32 + bf16 + dot)
-    return dict(flops=f32, bf16_flops=bf16, tensor_flops=dot)
-
-
 def tensor_bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def scan_bound(n_win: int, F: int, depth: int, k: int, dec: int,
-               fast: bool = False) -> tuple[float, str]:
-    """Kernel B1: per (window, f, coarse lag) 42 complex multiply-adds (in
-    the bf16 mode three real ones of bf16 operands, Karatsuba, counted as a
-    tensor-core dot), the E factor, the T_m sums, the pattern sums and a
-    magnitude per pattern; the windows, B, E, chi in and (pos, xb) out once
-    (complex64 in both modes: the kernel rounds on the card)."""
-    n2 = 5184 // dec
-    lags = n_win * F * n2
-    corr = lags * 42 * (6 if fast else 8)
-    rest = lags * (6 + 2 * min(depth, 6) + 2 * depth + 4 * depth)
-    nbytes = 8 * (n_win * 5184 + F * (42 + n2 + 1) + n_win * F * depth * k)
-    return bound(**split_ops(fast, f32=rest, dot=corr), nbytes=nbytes)
 
 
 def bp_bound(llr, valid, res, max_iters: int = 10) -> tuple[int, float, str]:
     """Kernel B3 on these rows: the message updates they need (a row found
     at iteration i ran i updates, a valid row never found max_iters, an
-    invalid row none), each 384 edges x 3 special functions and about 12
-    FLOPs; the LLRs and flags in and the outputs out once."""
+    invalid row none), counted from the tensors, and roofline.bp_bound of
+    them."""
     import torch
 
     updates = int(torch.where(res.found, res.iterations,
                               torch.where(valid, max_iters, 0)).sum().item())
-    nbytes = tensor_bytes(llr, valid, *res)
-    return (updates, *bound(flops=updates * 384 * 12, sfu=updates * 384 * 3, nbytes=nbytes))
+    return (updates, *roofline.bp_bound(updates, llr.shape[0]))
 
 
 def main() -> int:
@@ -259,8 +207,6 @@ def main() -> int:
     if not (ROOT / "msk144cudecoder_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
-    from bench_torch.common import roofline
     from msk144cudecoder_tpu_torch import constants as C
     from msk144cudecoder_tpu_torch import stimulus
     from msk144cudecoder_tpu_torch.config import DecoderConfig

@@ -28,6 +28,9 @@ take a process-wide lock, one at a time, and run in capture_error_mode
 "thread_local", so that another worker's pin_memory, allocation or
 synchronize during a capture neither breaks it nor is refused.
 
+Spans: run names a pass by the lookup that picks its graph (graph_for) and
+opens it with the caller's span factory, so this module imports no tracing.
+
 Launch counts: a capture launches nothing, so under kernels.recording() the
 wrappers' counts go to the graph's tally, and each replay adds the tally: the
 counts stay the launches made, one pass's worth per call.
@@ -39,6 +42,7 @@ DecodePipeline eagerly).
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import NamedTuple
 
@@ -119,26 +123,33 @@ class GraphedPipeline:
         """The captured graphs by (shape, dtype, stream handle)."""
         return dict(self._graphs)
 
-    def run(self, raw: torch.Tensor, host: bool = False) -> PackedResult:
+    def run(self, raw: torch.Tensor, host: bool = False,
+            span=contextlib.nullcontext) -> PackedResult:
         """One pass over raw on the current stream: the packed results, copied
         on this stream to a new device buffer, or with host to pinned host
-        memory (ready once the stream has been synchronized)."""
-        if raw.device != self.device:
+        memory (ready once the stream has been synchronized). raw on the host
+        (pinned) is copied to the device without blocking, inside the span
+        that span(name) opens around the pass."""
+        on_host = raw.device.type == "cpu"
+        if not on_host and raw.device != self.device:
             raise ValueError(f"GraphedPipeline: raw is on {raw.device}, the pipeline "
                              f"on {self.device}")
         stream = torch.cuda.current_stream(self.device)
         key = (tuple(raw.shape), raw.dtype, stream.cuda_stream)
-        g = self._graphs.get(key)
-        if g is None:
-            with _capture_lock:
-                g = self._graphs.get(key)
-                if g is None:
-                    return self._capture(key, raw, stream, host)
-        with g.lock:
-            g.static_in.copy_(raw)
-            g.graph.replay()
-            kernels.add_launches(g.tally)
-            return _copy_out(g.packed, g.layout, host)
+        g, name = graph_for(self._graphs, key)
+        with span(name):
+            if on_host:
+                raw = raw.to(self.device, non_blocking=True)
+            if g is None:
+                with _capture_lock:
+                    g = self._graphs.get(key)
+                    if g is None:
+                        return self._capture(key, raw, stream, host)
+            with g.lock:
+                g.static_in.copy_(raw)
+                g.graph.replay()
+                kernels.add_launches(g.tally)
+                return _copy_out(g.packed, g.layout, host)
 
     def _capture(self, key, raw: torch.Tensor, stream, host: bool) -> PackedResult:
         """The first call of a key, under _capture_lock."""
@@ -161,6 +172,14 @@ class GraphedPipeline:
                                    torch.cuda.memory_reserved(self.device) - before,
                                    threading.Lock())
         return first
+
+
+def graph_for(graphs: dict, key) -> tuple:
+    """(key's graph, "launch") where graphs holds it, else (None,
+    "graph_capture"): the pass captures it (or replays under that name where
+    another thread captured it meanwhile)."""
+    g = graphs.get(key)
+    return g, ("graph_capture" if g is None else "launch")
 
 
 def _copy_out(buf: torch.Tensor, layout: tuple, host: bool) -> PackedResult:

@@ -70,8 +70,7 @@ class StreamDecoder:
         self._pipeline: Optional[pipeline.DecodePipeline] = None
         self._graphed: Optional[graphs.GraphedPipeline] = None  # on a card
         self._pipeline_lock = threading.Lock()
-        self._streams = threading.local()  # per thread: its CUDA stream, the shapes run
-        self._handle_shapes: Dict[int, set] = {}  # per worker stream handle: the shapes run
+        self._streams = threading.local()  # per decode_to_host thread: its CUDA stream
         self.survivor_capacity = (cfg.max_survivors if survivor_capacity is None
                                   else survivor_capacity)
         # with the xb prefilter on, survivor counts are lower bounds: only the
@@ -124,27 +123,27 @@ class StreamDecoder:
             raise RuntimeError(f"StreamDecoder on {pipe.B.device} runs eagerly: no CUDA graphs")
         return self._graphed
 
-    def _run(self, raw_batch):
-        """One pass on the current stream: a PackedResult of a graph replay
-        on a card, a WindowDecodeResult on the CPU. Spans: `h2d`, the batch
-        to the device; `launch`, the pass enqueued (on a card the static
-        copy, the replay and the copy out; on the CPU the eager pass), or
-        `graph_capture` where this pass captures its key's graph."""
+    def _run(self, raw_batch, stream=None):
+        """One pass: on the CPU the eager WindowDecodeResult (spans `h2d`,
+        `launch`), on a card a graph's PackedResult. Without stream (submit)
+        a pageable copy under `h2d`, the pass on the current stream, the
+        result on the card; with stream (decode_to_host) pinned staging under
+        `pin`, the pass on stream from a copy enqueued in its span, the
+        result in pinned host memory. GraphedPipeline.run names the pass's
+        span: `launch`, or `graph_capture` where it captures."""
         host = torch.from_numpy(np.ascontiguousarray(raw_batch))
-        cuda = self.device.type == "cuda"
-        with ScopedMetric("h2d"):
-            raw = host.to(self.device)
-        if not cuda:
-            with ScopedMetric("launch"):
-                return self.pipeline(raw)
-        # the submit path runs on the thread's current stream, taken to be
-        # the same stream at every submit of the thread (asking for it costs
-        # several us a pass)
-        shapes = getattr(self._streams, "current_shapes", None)
-        if shapes is None:
-            shapes = self._streams.current_shapes = set()
-        with ScopedMetric(_pass_span(shapes, raw)):
-            return self.graphed.run(raw)
+        if stream is None:
+            with ScopedMetric("h2d"):
+                raw = host.to(self.device)
+            if self.device.type != "cuda":
+                with ScopedMetric("launch"):
+                    return self.pipeline(raw)
+            return self.graphed.run(raw, span=ScopedMetric)
+        graphed = self.graphed
+        with ScopedMetric("pin"):
+            host = host.pin_memory()
+        with torch.cuda.stream(stream):
+            return graphed.run(host, host=True, span=ScopedMetric)
 
     def submit(self, raw_window: np.ndarray) -> None:
         """Enqueue the device pipeline on one raw window. Several windows
@@ -197,19 +196,11 @@ class StreamDecoder:
         metrics.refresh()
         with ScopedMetric("decode_to_host"):
             if self.device.type != "cuda":
-                return to_host(self._run(np.asarray(raw_batch)))
-            graphed = self.graphed
+                return to_host(self._run(raw_batch))
             stream = getattr(self._streams, "stream", None)
             if stream is None:
                 stream = self._streams.stream = torch.cuda.Stream(self.device)
-                # the pool hands a stream's handle out again, with the graphs
-                # an earlier stream of that handle captured
-                self._streams.shapes = self._handle_shapes.setdefault(stream.cuda_stream, set())
-            with ScopedMetric("pin"):
-                host_raw = torch.from_numpy(np.ascontiguousarray(raw_batch)).pin_memory()
-            span = _pass_span(self._streams.shapes, host_raw)
-            with torch.cuda.stream(stream), ScopedMetric(span):
-                out = graphed.run(host_raw.to(self.device, non_blocking=True), host=True)
+            out = self._run(raw_batch, stream)
             with ScopedMetric("sync"):
                 stream.synchronize()
             return out.numpy()
@@ -240,9 +231,6 @@ class StreamDecoder:
             self._decode_cache.pop(next(iter(self._decode_cache)))
         self._decode_cache[key] = out
         return out
-
-    def _unpack_cached(self, bits77: np.ndarray) -> Tuple[bool, str]:
-        return self._lookup(np.packbits(bits77).tobytes())
 
     #: windows between aggregated overflow warnings (the first overflow
     #: prints immediately; on a busy band every window can overflow)
@@ -371,18 +359,6 @@ class StreamDecoder:
                 pattern_idx=pi,
                 message=text,
             )
-
-def _pass_span(shapes: set, raw: torch.Tensor) -> str:
-    """The span of a pass over raw on a stream that has run `shapes` (the
-    (shape, dtype) pairs of its earlier passes; raw's is added): a graph is
-    captured per (shape, dtype, stream), at its first pass, so
-    `graph_capture` there and `launch` after."""
-    key = (raw.shape, raw.dtype)
-    if key in shapes:
-        return "launch"
-    shapes.add(key)
-    return "graph_capture"
-
 
 def to_host(res) -> pipeline.WindowDecodeResult:
     """Every leaf of a WindowDecodeResult as a numpy array (one .cpu() per

@@ -310,5 +310,5 @@ def test_unpack_cache_is_bounded(monkeypatch):
     dec = StreamDecoder(DecoderConfig(search_width=32.0), "cpu")
     rng = np.random.default_rng(0)
     for _ in range(10):
-        dec._unpack_cached(rng.integers(0, 2, C.NUM_MESSAGE_BITS).astype(np.int8))
+        dec._lookup(np.packbits(rng.integers(0, 2, C.NUM_MESSAGE_BITS)).tobytes())
     assert len(dec._decode_cache) == 4

@@ -226,6 +226,6 @@ def test_packed_bytes_are_packbits_with_zero_pad():
 def test_unpack_cached_keys_the_memo_by_packed_bytes():
     dec = StreamDecoder(CFG, "cpu")
     bits = msg77.pack77(TEXTS[0], msg77.CallsignHashTable())
-    assert dec._unpack_cached(bits) == (True, TEXTS[0])
+    assert dec._lookup(np.packbits(bits).tobytes()) == (True, TEXTS[0])
     assert list(dec._decode_cache) == [payload(TEXTS[0]).tobytes()]
     assert dec._lookup(payload(TEXTS[0]).tobytes()) == (True, TEXTS[0]) and dec._memo_hits == 1

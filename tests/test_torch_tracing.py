@@ -154,13 +154,26 @@ def test_a_new_recording_forgets_every_threads_tallies(switch):
 
 
 def test_a_pass_is_a_capture_at_its_streams_first_shape_only():
-    from msk144cudecoder_tpu_torch.runtime.decoder import _pass_span
+    """GraphedPipeline.run's decision, on its key (shape, dtype, stream
+    handle): a key's first pass captures (no graph, `graph_capture`), and
+    once its graph is held a pass replays it under `launch`."""
+    from msk144cudecoder_tpu_torch.ops.graphs import graph_for
 
-    shapes = set()
+    held = {}
+
+    def pass_(x, stream=7):
+        key = (tuple(x.shape), x.dtype, stream)
+        g, name = graph_for(held, key)
+        assert (g is None) == (name == "graph_capture") and g is held.get(key)
+        held.setdefault(key, object())  # run's capture stores the key's graph
+        return name
+
     one, two = torch.zeros(1, 8, dtype=torch.int16), torch.zeros(2, 8, dtype=torch.int16)
-    assert [_pass_span(shapes, x) for x in (one, one, two, one, two)] == [
+    assert [pass_(x) for x in (one, one, two, one, two)] == [
         "graph_capture", "launch", "graph_capture", "launch", "launch"]
-    assert _pass_span(shapes, one.float()) == "graph_capture"
+    assert pass_(one.float()) == "graph_capture"
+    assert [pass_(one, stream=8), pass_(one, stream=8), pass_(one)] == [
+        "graph_capture", "launch", "launch"]
 
 
 def reference_lines(n_windows: int):
